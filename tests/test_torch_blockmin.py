@@ -1,0 +1,107 @@
+"""The blockmin twin against the Pallas kernels it replaces (interpret
+mode, on the CPU) and the port's scans against brute force. Exact
+equality throughout. The CUDA kernel's own tests are in test_torch_gpu.py."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tests import reference_model as ref
+from verticut_tpu import codes as jcodes
+from verticut_tpu.ops.pallas import (pallas_blockmin, pallas_blockmin_t,
+                                     pallas_blockmin_t2)
+from verticut_tpu_torch import bits
+from verticut_tpu_torch.kernels import blockmin as kb
+from verticut_tpu_torch.ops import hamming
+from verticut_tpu_torch.search import linear_search
+
+
+def _raw(seed, n, nq):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, size=(n, 16), dtype=np.uint8),
+            rng.integers(0, 256, size=(nq, 16), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("kernel,nq", [("t", 10), ("t2", 70)])
+def test_twin_matches_transposed_kernels_on_full_blocks(kernel, nq):
+    """K2 (pallas_blockmin_t) and K1 (pallas_blockmin_t2) take a
+    transposed, zero-padded corpus and leave the tail to the caller, so
+    they agree with the twin on every block wholly below n."""
+    block, n = 512, 63321                       # npad 65536, 123 full blocks
+    raw_db, raw_q = _raw(9, n, nq)
+    q, db = jcodes.pack_bytes(raw_q), jcodes.pack_bytes(raw_db)
+    db_t = jcodes.transpose_scan_layout(jnp.asarray(db))
+    if kernel == "t":
+        want = pallas_blockmin_t(jnp.asarray(q), db_t, block=block,
+                                 interpret=True)
+    else:
+        want = pallas_blockmin_t2(jnp.asarray(q), db_t, block=block,
+                                  sub_q=32, interpret=True)
+    got = kb.blockmin_reference(bits.as_codes(q), bits.as_codes(db), n, block)
+    nfull = n // block
+    assert got.shape == (nq, -(-n // block))
+    assert np.array_equal(got[:, :nfull].numpy(), np.asarray(want)[:, :nfull])
+
+
+@pytest.mark.parametrize("block,n", [(16, 3796), (32, 3990)])
+def test_twin_matches_rowmajor_kernel_all_blocks(block, n):
+    """K3 (pallas_blockmin) has the twin's contract: rows >= n excluded,
+    the straddling block exact, blocks past n at bits + 1."""
+    npad = 4096
+    raw_db, raw_q = _raw(block, npad, 10)
+    raw_db[n:] = 0
+    q, db = jcodes.pack_bytes(raw_q), jcodes.pack_bytes(raw_db)
+    want = pallas_blockmin(jnp.asarray(q), jnp.asarray(db), n, block=block,
+                           interpret=True)
+    got = kb.blockmin_reference(bits.as_codes(q), bits.as_codes(db), n, block)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def _adversarial(seed, n, nq):
+    raw_db, raw_q = _raw(seed, n, nq)
+    raw_db[n - 3] = raw_q[0] ^ np.uint8(1)      # in the straddling block
+    raw_db[n - 1] = raw_q[1]
+    raw_db[513] = raw_q[0]
+    raw_db[7] = raw_q[2]                        # ties at distance 0..1
+    raw_db[8] = raw_q[2]
+    return raw_db, raw_q
+
+
+@pytest.mark.parametrize("k", [1, 9, 40])
+def test_scans_match_brute_force(k):
+    n = 20873
+    raw_db, raw_q = _adversarial(11, n, 6)
+    ed, ei = ref.brute_force(raw_q, raw_db, k)
+    q = bits.as_codes(jcodes.pack_bytes(raw_q))
+    db = bits.as_codes(jcodes.pack_bytes(raw_db))
+    for block in (128, 512):
+        d, i = hamming.scan_blockmin(q, db, k, block=block)
+        assert np.array_equal(d.numpy(), ed) and np.array_equal(i.numpy(), ei)
+    d, i = hamming.scan_popcount(q, db, k, chunk=4096)
+    assert np.array_equal(d.numpy(), ed) and np.array_equal(i.numpy(), ei)
+    for method in ("auto", "blockmin", "popcount"):
+        d, i = linear_search(jcodes.pack_bytes(raw_q), db, k, method=method)
+        assert np.array_equal(d.numpy(), ed) and np.array_equal(i.numpy(), ei)
+
+
+def test_scans_pad_when_corpus_is_smaller_than_k():
+    raw_db, raw_q = _raw(3, 5, 4)
+    q = bits.as_codes(jcodes.pack_bytes(raw_q))
+    db = bits.as_codes(jcodes.pack_bytes(raw_db))
+    ed, ei = ref.brute_force(raw_q, raw_db, 5)
+    for d, i in (hamming.scan_blockmin(q, db, 8, block=128),
+                 hamming.scan_popcount(q, db, 8)):
+        assert np.array_equal(d[:, :5].numpy(), ed)
+        assert np.array_equal(i[:, :5].numpy(), ei)
+        assert (d[:, 5:] == 0x7FFFFFFF).all() and (i[:, 5:] == -1).all()
+
+
+def test_wrapper_rejects_bad_inputs():
+    q = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kb.blockmin(q.to(torch.int64), q.to(torch.int64), 3, 128)
+    with pytest.raises(ValueError):
+        kb.blockmin(q, torch.zeros((5, 2), dtype=torch.int32), 5, 128)
+    with pytest.raises(ValueError):
+        kb.blockmin(q, torch.zeros((5, 4), dtype=torch.int32), 6, 128)

@@ -1,0 +1,121 @@
+"""Packed binary codes: host generation and device bit manipulation.
+
+A B-bit code is ``B // 32`` words, word ``w`` holding bytes ``4w..4w+3``
+little-endian, exactly as in ``verticut_tpu/codes.py``. Host arrays are
+numpy ``uint32`` (byte-identical to the JAX package's generators); device
+code is torch ``int32`` tensors holding the same bit patterns
+(:mod:`verticut_tpu_torch.bits`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from verticut_tpu_torch.bits import popcount32, shr
+
+
+# --------------------------------------------------------------------------
+# Host-side packing and generation (numpy; same bytes as the reference)
+# --------------------------------------------------------------------------
+
+def pack_bytes(raw: np.ndarray) -> np.ndarray:
+    """Pack ``uint8[N, nbytes]`` code bytes into ``uint32[N, nbytes//4]``
+    (byte ``4w+j`` -> bits ``8j..8j+7`` of word ``w``)."""
+    raw = np.asarray(raw, dtype=np.uint8)
+    if raw.ndim == 1:
+        raw = raw[None]
+    n, nbytes = raw.shape
+    if nbytes % 4:
+        raise ValueError(f"code byte length {nbytes} not a multiple of 4")
+    b = raw.reshape(n, nbytes // 4, 4).astype(np.uint32)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def unpack_to_bytes(words: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_bytes`: ``uint32[N, W]`` -> ``uint8[N, 4W]``."""
+    words = np.asarray(words, dtype=np.uint32)
+    shifts = np.array([0, 8, 16, 24], dtype=np.uint32)
+    b = (words[..., None] >> shifts) & np.uint32(0xFF)
+    return b.reshape(*words.shape[:-1], words.shape[-1] * 4).astype(np.uint8)
+
+
+def random_codes(seed: int, n: int, bits: int = 128) -> np.ndarray:
+    """Uniform random packed codes ``uint32[n, bits//32]``."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << 32, size=(n, bits // 32), dtype=np.uint32)
+
+
+def clustered_codes(seed: int, n: int, bits: int = 128,
+                    n_clusters: int = 64, flip_p: float = 0.05) -> np.ndarray:
+    """Codes clustered around random centers: each row is a random center
+    with a Binomial(bits, flip_p) count of random bit positions XOR-ed in
+    (duplicate positions cancel)."""
+    rng = np.random.default_rng(seed)
+    nbytes = bits // 8
+    w = nbytes // 4
+    centers = pack_bytes(
+        rng.integers(0, 256, size=(n_clusters, nbytes), dtype=np.uint8))
+    assign = rng.integers(0, n_clusters, size=n)
+    out = centers[assign].copy()
+    counts = rng.binomial(bits, flip_p, size=n)
+    total = int(counts.sum())
+    row = np.repeat(np.arange(n, dtype=np.int64), counts)
+    pos = rng.integers(0, bits, size=total)
+    flat = out.reshape(-1)
+    idx = row * w + (pos >> 5)
+    vals = (np.uint32(1) << (pos & 31)).astype(np.uint32)
+    # grouped XOR via sort + reduceat (ufunc.at is ~100x slower)
+    order = np.argsort(idx, kind="stable")
+    sidx, svals = idx[order], vals[order]
+    starts = np.flatnonzero(np.concatenate(
+        [[True], sidx[1:] != sidx[:-1]]))
+    if len(sidx):
+        flat[sidx[starts]] ^= np.bitwise_xor.reduceat(svals, starts)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Substrings (the hash-table bucket index)
+# --------------------------------------------------------------------------
+
+def substring(codes: torch.Tensor, table_id: int, s_bits: int) -> torch.Tensor:
+    """Substring ``table_id`` of width ``s_bits`` of ``int32[..., W]``
+    codes: ``s_bits // 8`` bytes from byte ``table_id * s_bits // 8``,
+    composed little-endian (``binaryToInt``). Returns ``int32[...]`` bit
+    patterns; ``s_bits`` must be a multiple of 8 and <= 32."""
+    if s_bits % 8 or s_bits > 32:
+        raise ValueError(f"s_bits must be a multiple of 8 and <= 32: {s_bits}")
+    if s_bits == 32:
+        return codes[..., table_id]
+    start = table_id * (s_bits // 8)
+    val = torch.zeros(codes.shape[:-1], dtype=torch.int32, device=codes.device)
+    for j in range(s_bits // 8):
+        byte_idx = start + j
+        word = codes[..., byte_idx // 4]
+        byte = shr(word, (byte_idx % 4) * 8) & 0xFF
+        val = val | (byte << (8 * j))
+    return val
+
+
+def all_substrings(codes: torch.Tensor, n_tables: int) -> torch.Tensor:
+    """``int32[..., W] -> int32[..., n_tables]``: every table's substring."""
+    s_bits = codes.shape[-1] * 32 // n_tables
+    return torch.stack(
+        [substring(codes, t, s_bits) for t in range(n_tables)], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Hamming distance (XOR + popcount)
+# --------------------------------------------------------------------------
+
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance, broadcasting over leading dims and
+    reducing the word dim: ``int32[..., W] x int32[..., W] -> int32[...]``."""
+    return popcount32(a ^ b).sum(dim=-1, dtype=torch.int32)
+
+
+def pairwise_hamming(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """All-pairs distances ``[Q, W] x [N, W] -> int32[Q, N]``. Materializes
+    ``[Q, N, W]``; callers chunk N."""
+    return hamming_distance(queries[:, None, :], db[None, :, :])

@@ -1,0 +1,2 @@
+from verticut_tpu_torch.index.mih import (MIHIndex, MIHTable,  # noqa: F401
+                                          build_index, index_from_arrays)

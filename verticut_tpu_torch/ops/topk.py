@@ -1,0 +1,130 @@
+"""Bounded top-k selection and dedup merges over packed ``int64`` keys.
+
+The main-path subset of ``verticut_tpu/ops/topk.py``. A pool per query is
+``(dist int32[Q, P], id int32[Q, P])`` ascending by ``(dist, id)``; empty
+slots hold ``(INF_DIST, -1)``. Candidates are selected as ascending keys
+``dist << 24 | id`` (:func:`pack_keys`), unique per element, so
+``torch.topk``'s undefined tie order never shows: equal keys are equal
+values. Ids must stay below 2^24 (:func:`can_pack`); the
+reference's wide-id ``_pos`` variants are not ported yet (ROADMAP.md,
+Queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+INF_DIST = 0x7FFFFFFF
+INVALID_ID = -1
+
+#: bits of id payload under the distance field of a packed selection key
+PACKED_ID_BITS = 24
+_ID_MASK = (1 << PACKED_ID_BITS) - 1
+#: the invalid key: above every valid ``dist << 24 | id`` key (dist <= 254)
+SENTINEL_KEY = 0xFFFFFFFF
+
+#: widest chunk axis the chunk-min pre-selection admits, and the widest
+#: strip it selects (the reference's _CHUNKMIN_MAX_CHB and _TOPK_WIDE;
+#: kept so both packages take the same path at the same shapes)
+_CHUNKMIN_MAX_CHB = 1024
+_TOPK_WIDE = 1536
+
+
+def pack_keys(dist: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Ascending ``int64`` keys ``dist << 24 | id``; invalid slots
+    (``id < 0``) get :data:`SENTINEL_KEY`. The reference selects the
+    complements ``~(dist << 24 | id)`` as uint32, largest first."""
+    k = (dist.to(torch.int64) << PACKED_ID_BITS) | ids.to(torch.int64)
+    return torch.where(ids >= 0, k, SENTINEL_KEY)
+
+
+def unpack_keys(keys: torch.Tensor):
+    """Inverse of :func:`pack_keys`: ``(dist int32, id int32)`` with
+    sentinel slots at ``(INF_DIST, -1)``."""
+    invalid = keys == SENTINEL_KEY
+    d = (keys >> PACKED_ID_BITS).to(torch.int32)
+    i = (keys & _ID_MASK).to(torch.int32)
+    return (torch.where(invalid, INF_DIST, d),
+            torch.where(invalid, INVALID_ID, i))
+
+
+def empty_pool(n_queries: int, pool_size: int, device=None):
+    """Fresh pool: all slots invalid."""
+    return (torch.full((n_queries, pool_size), INF_DIST, dtype=torch.int32,
+                       device=device),
+            torch.full((n_queries, pool_size), INVALID_ID, dtype=torch.int32,
+                       device=device))
+
+
+def can_pack(max_id: int, max_dist: int) -> bool:
+    # strict: the all-ones 32-bit key is the invalid sentinel
+    return max_id < (1 << PACKED_ID_BITS) and max_dist < (
+        1 << (32 - PACKED_ID_BITS)) - 1
+
+
+def select_asc(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """Smallest ``m`` keys of the last axis, ascending; pads with
+    :data:`SENTINEL_KEY` when the axis is shorter than ``m``. The
+    counterpart of the reference's ``select_desc`` over inverted keys."""
+    w = keys.shape[-1]
+    kk = min(m, w)
+    out = torch.topk(keys, kk, dim=-1, largest=False, sorted=True).values
+    if kk < m:
+        pad = out.new_full(out.shape[:-1] + (m - kk,), SENTINEL_KEY)
+        out = torch.cat([out, pad], dim=-1)
+    return out
+
+
+def table_topk_packed(cand_dist: torch.Tensor, cand_id: torch.Tensor,
+                      p: int) -> torch.Tensor:
+    """One table's top-``p`` candidates as ascending packed keys,
+    ``[Q, C] -> int64[Q, min(p, C)]``. Needs :func:`can_pack` bounds."""
+    kc = pack_keys(cand_dist, cand_id)
+    return select_asc(kc, min(p, kc.shape[-1]))
+
+
+def table_topk_chunkmin_packed(cand_dist: torch.Tensor, cand_id: torch.Tensor,
+                               p: int, blk: int) -> torch.Tensor:
+    """One table's top-``p`` via chunk-min pre-selection.
+
+    ``cand_* [Q, C]`` arrive as ``C = chb * blk`` slots in chunk-major
+    order, and within one table at one radius step every id appears at most
+    once. So the top-``p`` keys lie in the ``p`` chunks with the smallest
+    chunk minima: select those chunks, gather them, select ``p`` keys from
+    the narrow strip. Falls back to :func:`table_topk_packed` at the same
+    shapes as the reference (strip not well under the candidate width, or
+    too many chunks)."""
+    q, c = cand_dist.shape
+    chb = c // blk
+    if (4 * p * blk > c or c % blk or chb > _CHUNKMIN_MAX_CHB
+            or p > _TOPK_WIDE):
+        return table_topk_packed(cand_dist, cand_id, p)
+    kc3 = pack_keys(cand_dist, cand_id).reshape(q, chb, blk)
+    cmin = kc3.amin(dim=-1)                                     # [Q, chb]
+    # chunks tie only when both hold no valid key, and then either choice
+    # contributes nothing
+    ci = torch.topk(cmin, p, dim=-1, largest=False).indices
+    g = torch.gather(kc3, 1, ci[:, :, None].expand(q, p, blk))
+    return select_asc(g.reshape(q, p * blk), p)
+
+
+def merge_strips_packed(pool_dist: torch.Tensor, pool_id: torch.Tensor,
+                        strips: torch.Tensor, n_copies: int):
+    """Dedup merge of the pool with per-table strips (``int64[Q, S]``
+    ascending keys from the table selections). ``n_copies`` bounds the
+    copies one id can have across pool and strips (n_tables + 1). A
+    duplicate is a bitwise-equal key: select, blank adjacent repeats,
+    select again."""
+    p = pool_dist.shape[-1]
+    keys = torch.cat([pack_keys(pool_dist, pool_id), strips], dim=-1)
+    m = min(p * n_copies, keys.shape[-1])
+    top = select_asc(keys, m)
+    dup = torch.zeros_like(top, dtype=torch.bool)
+    dup[:, 1:] = (top[:, 1:] == top[:, :-1]) & (top[:, 1:] != SENTINEL_KEY)
+    top = torch.where(dup, SENTINEL_KEY, top)
+    return unpack_keys(select_asc(top, p))
+
+
+def kth_stats(pool_dist: torch.Tensor, pool_id: torch.Tensor, k: int):
+    """(pool has >= k valid entries, distance of the kth entry) per query."""
+    return pool_id[:, k - 1] >= 0, pool_dist[:, k - 1]

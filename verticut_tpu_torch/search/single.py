@@ -1,0 +1,482 @@
+"""Single-device batched exact MIH search: the fused staged driver.
+
+Port of the exact, fused path of ``verticut_tpu/search/single.py`` (what
+``mih_search`` runs by default). Per radius stage and per table,
+:func:`radius_step` probes the range directory with every flipped prefix,
+fetches and scores the entry blocks, keeps the table's top-P, merges the
+strips into the pool and applies the MIH stop rule. :func:`run_pipeline`
+drives the stages with compaction to shrinking batch budgets, an overflow
+retry ladder and a brute-force scan ladder; :func:`_apply_fallbacks` then
+re-runs still-overflowed queries at larger caps and scans what remains.
+
+Where the reference's single device program branches with ``lax.cond``,
+the port reads a scalar from the device and branches on the host. The
+stats are returned as the reference's packed result row carries them:
+``radius`` saturated at 127 and ``n_probes`` at 0xFFFF.
+
+Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md
+Queue 1): the loop driver ``fused=False`` and an empty fused schedule
+(item 1), ``approximate=True`` (item 2), ``overflow_to_scan=True`` and the
+``mih_search_dispatch`` / ``mih_search_finalize`` pipelining (item 3), and
+ids of 2^24 and more (the ``_pos`` selections, item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from verticut_tpu_torch.bits import as_codes, shr
+from verticut_tpu_torch.config import MIHConfig, SearchConfig
+from verticut_tpu_torch.index.mih import MIHIndex, MIHTable, entry_block_size
+from verticut_tpu_torch.ops import chunks as chunks_lib
+from verticut_tpu_torch.ops import enumeration, topk
+from verticut_tpu_torch.ops.hamming import scan_blockmin
+from verticut_tpu_torch.search import linear as linear_lib
+
+# Fetch-block size of the schedule's cost model (the reference's RANGE_BLK:
+# 25-entry inline rows and 32-id compact rows both fit under it).
+RANGE_BLK = 32
+
+# Smallest batch that turns on the scan-dominance stage skip (diverts
+# scan-dominated batches from deep enumeration to the scan ladder).
+SCAN_DOMINANCE_MIN_NQ = 1024
+
+
+class SearchState(NamedTuple):
+    pool_dist: torch.Tensor   # int32[Q, P]
+    pool_id: torch.Tensor     # int32[Q, P]
+    done: torch.Tensor        # bool[Q]
+    radius: torch.Tensor      # int32[Q]: radius at which each query finished
+    overflow: torch.Tensor    # bool[Q]: candidate budget exceeded
+    n_probes: torch.Tensor    # int32[Q]: probed prefixes
+    n_nonempty: torch.Tensor  # int32[Q]: non-empty probed ranges
+    n_cands: torch.Tensor     # int32[Q]: candidates scored
+
+
+class SearchResult(NamedTuple):
+    dists: torch.Tensor       # int32[Q, k] ascending
+    ids: torch.Tensor         # int32[Q, k] (-1 = fewer than k results exist)
+    radius: torch.Tensor      # int32[Q], saturated at 127
+    n_probes: torch.Tensor    # int32[Q], saturated at 0xFFFF
+    n_nonempty: torch.Tensor  # int32[Q]
+    n_cands: torch.Tensor     # int32[Q]
+
+
+def init_state(n_queries: int, pool_size: int, device=None) -> SearchState:
+    pd, pi = topk.empty_pool(n_queries, pool_size, device)
+    z = torch.zeros(n_queries, dtype=torch.int32, device=device)
+    f = torch.zeros(n_queries, dtype=torch.bool, device=device)
+    return SearchState(pool_dist=pd, pool_id=pi, done=f, radius=z,
+                       overflow=f, n_probes=z, n_nonempty=z, n_cands=z)
+
+
+def _take(state: SearchState, sel: torch.Tensor) -> SearchState:
+    return SearchState(*(leaf[sel] for leaf in state))
+
+
+# --------------------------------------------------------------------------
+# One radius step
+# --------------------------------------------------------------------------
+
+def _table_candidates_range(table: MIHTable, queries: torch.Tensor,
+                            q_sub: torch.Tensor, pmasks: torch.Tensor,
+                            done: torch.Tensor, cap: int, s_bits: int):
+    """Candidates of one range table at one radius: one probe per flipped
+    prefix fetches the prefix's whole row range. Returns ``(cand_dist
+    [Q, S], cand_id [Q, S], n_scored, overflow, n_probe, n_nonempty)``,
+    S = the chunk budget in slots."""
+    d = table.directory
+    blk = entry_block_size(queries.shape[-1])
+    chb = max(4, cap // blk)
+    pref = shr(q_sub, s_bits - d.pbits)[:, None] ^ pmasks[None, :]  # [Q, H]
+    starts, counts = d.range_lookup(pref)
+    active = ~done
+    counts = torch.where(active[:, None], counts, 0)
+    n_probe = torch.where(active, pref.shape[1], 0).to(torch.int32)
+    n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
+    blk_id, lo, hi, _nch, overflow = chunks_lib.chunk_descriptors(
+        starts, counts, blk=blk, chb=chb, n_blocks=table.entry_rows.shape[0])
+    dist, cand_id = chunks_lib.fetch_score_blocks(
+        table.entry_rows, blk_id, lo, hi, queries, blk=blk)
+    n_scored = (hi - lo).sum(dim=-1, dtype=torch.int32)
+    return dist, cand_id, n_scored, overflow, n_probe, n_nonempty
+
+
+def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
+                masks: torch.Tensor, state: SearchState, *, radius: int,
+                n_tables: int, knn: int, cap: int,
+                s_bits: int) -> SearchState:
+    """Process one radius group for the whole batch (exact stop rule).
+    Each table's candidates are cut to a pool-wide strip as soon as they
+    are scored (ids are unique within one table at one step), so only one
+    table's candidate slab is alive at a time."""
+    blk = entry_block_size(queries.shape[-1])
+    p = state.pool_dist.shape[-1]
+    overflow = state.overflow
+    total_c = torch.zeros_like(state.n_cands)
+    n_probes, n_nonempty = state.n_probes, state.n_nonempty
+    strips = []
+    for t in range(n_tables):
+        d, i, tot, ovf, npb, nne = _table_candidates_range(
+            tables[t], queries, q_subs[:, t], masks, state.done, cap, s_bits)
+        strips.append(topk.table_topk_chunkmin_packed(d, i, p, blk))
+        del d, i
+        overflow = overflow | ovf
+        total_c = total_c + torch.clamp(tot, max=cap)
+        n_probes = n_probes + npb
+        n_nonempty = n_nonempty + nne
+    pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
+                                      torch.cat(strips, dim=-1),
+                                      n_copies=n_tables + 1)
+    full, kth = topk.kth_stats(pd, pi, knn)
+    newly_done = (full & (kth <= (radius + 1) * n_tables)) | (radius >= s_bits)
+    return SearchState(pool_dist=pd, pool_id=pi, done=state.done | newly_done,
+                       radius=torch.where(state.done, state.radius, radius),
+                       overflow=overflow, n_probes=n_probes,
+                       n_nonempty=n_nonempty, n_cands=state.n_cands + total_c)
+
+
+# --------------------------------------------------------------------------
+# Schedules, caps and budgets (same rules as the reference)
+# --------------------------------------------------------------------------
+
+def effective_scfg(scfg: SearchConfig) -> SearchConfig:
+    """Approximate requests above ``approx_exact_crossover`` pool slots run
+    the exact engine (as every reference driver does)."""
+    if scfg.approximate and scfg.pool_size > scfg.approx_exact_crossover:
+        return dataclasses.replace(scfg, approximate=False)
+    return scfg
+
+
+def _check_query_shape(index: MIHIndex, queries: torch.Tensor) -> None:
+    if queries.ndim != 2 or queries.shape[-1] != index.cfg.n_words:
+        raise ValueError(
+            f"queries shape {tuple(queries.shape)} does not match index "
+            f"code width ({index.cfg.n_words} uint32 words = "
+            f"{index.cfg.bits} bits); expected [Q, {index.cfg.n_words}]")
+
+
+def _cap_for_radius(scfg: SearchConfig, n: int, radii, mask_bits: int,
+                    blk: int) -> int:
+    """Per-radius candidate capacity in slots: one fetch block per probe,
+    twice the uniform-occupancy expectation, and room for one hot range;
+    overflow detection and re-runs cover skewed data."""
+    n_m = sum(enumeration.n_masks(mask_bits, r) for r in radii)
+    expected = n_m * (n / float(1 << mask_bits))
+    slots = n_m * blk + 2 * int(expected) + 12 * blk
+    cap = -(-slots // (4 * blk)) * (4 * blk)
+    return int(min(scfg.candidate_cap, max(256, cap)))
+
+
+def _radius_schedule(scfg: SearchConfig, cfg: MIHConfig, n: int,
+                     mask_bits: int):
+    """Coalesced {0, 1} then one radius per stage, cut where enumerating
+    costs more fetched rows than scanning the corpus."""
+    max_r = min(scfg.max_enum_radius, mask_bits)
+    if scfg.coalesce_radii and max_r >= 1:
+        schedule = [(1, (0, 1))] + [(r, (r,)) for r in range(2, max_r + 1)]
+    else:
+        schedule = [(r, (r,)) for r in range(max_r + 1)]
+    out = []
+    for r, group in schedule:
+        n_group = sum(enumeration.n_masks(mask_bits, g) for g in group)
+        # fetched rows: ~(expected range + one block) per probe, against
+        # scanning all n codes once
+        est_rows = n_group * (n / float(1 << mask_bits) + RANGE_BLK)
+        too_dear = est_rows * cfg.n_tables > scfg.fallback_ratio * max(n, 1)
+        if r > 1 and too_dear:
+            break
+        out.append((r, group))
+    return tuple(out)
+
+
+def _stage_shift(knn: int, n: int = 0) -> int:
+    """First-stage batch-budget shift: stage budgets are
+    ``nq >> (shift + 2*(stage-1))``; gentler for wide k, and the aggressive
+    shrink only where the corpus size says a spilled row's scan is cheap."""
+    if knn > 32:
+        return 2
+    return 5 if 0 < n <= 4_000_000 else 4
+
+
+# --------------------------------------------------------------------------
+# The staged pipeline
+# --------------------------------------------------------------------------
+
+def _blend(full: torch.Tensor, sel: torch.Tensor, flag_sel: torch.Tensor,
+           new: torch.Tensor) -> torch.Tensor:
+    """``full`` with rows ``sel`` replaced by ``new`` where ``flag_sel``."""
+    out = full.clone()
+    m = flag_sel.reshape((-1,) + (1,) * (new.ndim - 1))
+    out[sel] = torch.where(m, new, full[sel])
+    return out
+
+
+def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
+                 q_subs: torch.Tensor, state0: SearchState, *, schedule,
+                 caps, batch_caps, knn: int, pool_size: int,
+                 retry_caps=None, retry_budget: int = 0,
+                 scan_budget: int = 0, scan_dominance: int = 0
+                 ) -> SearchState:
+    """Stages with compaction, then the overflow retry ladder, then the
+    scan ladder. ``step_fn(i, radius, cap, queries, q_subs, state)`` is one
+    radius step; ``scan_fn(queries) -> (dists [B, knn], ids [B, knn])`` the
+    exact scan. ``scan_dominance`` > 0 skips every stage after the first
+    when at least that many queries are still active after it."""
+    nq = queries.shape[0]
+    dev = queries.device
+
+    def staged(queries_b, q_subs_b, state_b, stage_caps, stage_batch_caps,
+               dominance=0):
+        full = state_b
+        orig = torch.arange(queries_b.shape[0], device=dev)
+        cur_q, cur_qs, cur_state = queries_b, q_subs_b, state_b
+        dom = False
+        for i, (r, _group) in enumerate(schedule):
+            skip = bool(cur_state.done.all())
+            if i > 0 and dominance:
+                skip = skip or dom
+            if not skip:
+                cur_state = step_fn(i, r, stage_caps[i], cur_q, cur_qs,
+                                    cur_state)
+                full = SearchState(*(f.index_copy(0, orig, c)
+                                     for f, c in zip(full, cur_state)))
+            if i == 0 and dominance:
+                # decided once, on the full batch, before any compaction
+                dom = int((~cur_state.done).sum()) >= dominance
+            if i + 1 < len(schedule):
+                nb = stage_batch_caps[i + 1]
+                if nb < cur_q.shape[0]:
+                    # stable: active rows first, each group in row order;
+                    # actives past the budget stay undone in `full` and
+                    # are resolved by the scan ladder or the fallbacks
+                    perm = torch.argsort(cur_state.done.to(torch.int32),
+                                         stable=True)
+                    sel = perm[:nb]
+                    cur_q, cur_qs = cur_q[sel], cur_qs[sel]
+                    cur_state = _take(cur_state, sel)
+                    orig = orig[sel]
+        return full
+
+    full = staged(queries, q_subs, state0, caps, batch_caps,
+                  dominance=scan_dominance if scan_budget else 0)
+
+    if retry_caps:
+        # re-run overflowed-but-finished rows from radius 0 at the retry
+        # caps: a small tier for the usual handful, the full budget only
+        # when the small one is outgrown (exclusive gates on one count)
+        flag = full.overflow & full.done
+        n_f = int(flag.sum())
+        perm = torch.argsort((~flag).to(torch.int32), stable=True)
+        small = min(retry_budget, max(64, nq // 16))
+        budgets = [small] + ([retry_budget] if retry_budget > small else [])
+        for bi, budget in enumerate(budgets):
+            run = n_f > (0 if bi == 0 else budgets[bi - 1])
+            if bi + 1 < len(budgets):
+                run = run and n_f <= budget
+            if not run:
+                continue
+            sel = perm[:budget]
+            # the reference sizes these without n (its _stage_shift(knn))
+            retry_bc = tuple(
+                budget if i == 0
+                else max(64, budget >> (_stage_shift(knn) + 2 * (i - 1)))
+                for i in range(len(schedule)))
+            flag_sel = flag[sel]
+            rstate = init_state(budget, pool_size, dev)._replace(
+                done=~flag_sel)
+            rfull = staged(queries[sel], q_subs[sel], rstate, retry_caps,
+                           retry_bc)
+            # pools and flags from the re-run; the read-amplification
+            # stats keep the first run's counts
+            full = full._replace(**{
+                f: _blend(getattr(full, f), sel, flag_sel, getattr(rfull, f))
+                for f in ("pool_dist", "pool_id", "done", "radius",
+                          "overflow")})
+
+    if scan_budget and scan_fn is not None:
+        # tiered scan of the unfinished rows: exactly the first tier whose
+        # budget covers the straggler count runs
+        flag = ~full.done
+        n_sc = int(flag.sum())
+        perm = torch.argsort((~flag).to(torch.int32), stable=True)
+        budgets = [min(scan_budget, nq)]
+        while budgets[-1] < nq:
+            budgets.append(min(nq, budgets[-1] * 8))
+        for bi, budget in enumerate(budgets):
+            run = n_sc > (0 if bi == 0 else budgets[bi - 1])
+            if budget < nq:
+                run = run and n_sc <= budget
+            if not run:
+                continue
+            sel = perm[:budget]
+            flag_sel = flag[sel]
+            d, i = scan_fn(queries[sel])
+            if pool_size > knn:
+                d = torch.nn.functional.pad(d, (0, pool_size - knn),
+                                            value=topk.INF_DIST)
+                i = torch.nn.functional.pad(i, (0, pool_size - knn),
+                                            value=topk.INVALID_ID)
+            full = full._replace(
+                pool_dist=_blend(full.pool_dist, sel, flag_sel, d),
+                pool_id=_blend(full.pool_id, sel, flag_sel, i),
+                done=_blend(full.done, sel, flag_sel,
+                            torch.ones_like(flag_sel)),
+                overflow=_blend(full.overflow, sel, flag_sel,
+                                torch.zeros_like(flag_sel)))
+    return full
+
+
+# --------------------------------------------------------------------------
+# Entry point
+# --------------------------------------------------------------------------
+
+def _check_supported(index: MIHIndex, scfg: SearchConfig) -> None:
+    if scfg.use_bitmap:
+        raise ValueError(
+            "use_bitmap=True has no effect on the range-directory engine "
+            "(range fetches subsume the occupancy test)")
+    if not scfg.fused:
+        raise NotImplementedError(
+            "fused=False (the loop driver) is not ported yet: ROADMAP.md "
+            "Queue 1 item 1")
+    if scfg.approximate:
+        raise NotImplementedError(
+            "approximate=True is not ported yet: ROADMAP.md Queue 1 item 2")
+    if scfg.overflow_to_scan:
+        raise NotImplementedError(
+            "overflow_to_scan=True is not ported yet: ROADMAP.md Queue 1 "
+            "item 3")
+    max_id = max(t.n_entries(index.cfg.n_words) for t in index.tables)
+    if not topk.can_pack(max_id - 1, index.cfg.bits):
+        raise NotImplementedError(
+            f"{max_id} entries need the wide-id (_pos) selections, not "
+            "ported yet: ROADMAP.md Queue 1 item 4")
+
+
+def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
+    m = np.concatenate([enumeration.flip_masks(mask_bits, g) for g in group])
+    return torch.from_numpy(m.view(np.int32)).to(device)
+
+
+def mih_search(index: MIHIndex, queries,
+               scfg: SearchConfig = SearchConfig(),
+               _cap: Optional[int] = None) -> SearchResult:
+    """Batched exact K-NN over the MIH index, on the index's device.
+
+    ``queries``: ``uint32[Q, W]`` numpy codes or an ``int32[Q, W]`` tensor.
+    Runs the fused staged pipeline; queries whose candidate budgets still
+    overflowed are re-run at 4x caps, and queries unfinished at the last
+    stage take the exact linear scan."""
+    scfg = effective_scfg(scfg)
+    _check_supported(index, scfg)
+    cfg = index.cfg
+    dev = index.device
+    queries = as_codes(queries, dev).contiguous()
+    _check_query_shape(index, queries)
+    nq = queries.shape[0]
+    k, pool_size = scfg.knn, scfg.pool_size
+    mask_bits = index.tables[0].directory.pbits   # probes are per prefix
+    schedule = tuple(
+        (r, g)
+        for r, g in _radius_schedule(scfg, cfg, index.n, mask_bits)
+        if sum(enumeration.n_masks(mask_bits, x) for x in g)
+        <= scfg.fused_max_masks)
+    if not schedule:
+        raise NotImplementedError(
+            "no radius stage fits fused_max_masks; the reference then runs "
+            "the loop driver, not ported yet: ROADMAP.md Queue 1 item 1")
+    scan_budget = min(nq, max(64, nq // 64)) if index.codes is not None else 0
+    caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
+                                         entry_block_size(cfg.n_words))
+                 for _, g in schedule)
+    batch_caps = tuple(
+        nq if i == 0 else max(64, nq >> (_stage_shift(k, index.n)
+                                         + 2 * (i - 1)))
+        for i in range(len(schedule)))
+    masks = [_flip_masks(mask_bits, g, dev) for _, g in schedule]
+    retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
+    tables = tuple(index.tables)
+
+    def step_fn(i, r, cap, cq, cqs, cs):
+        return radius_step(tables, cq, cqs, masks[i], cs, radius=r,
+                           n_tables=cfg.n_tables, knn=k, cap=cap,
+                           s_bits=cfg.s_bits)
+
+    def scan_fn(sq):
+        # smaller blocks at large k: the rescore gathers k blocks per query
+        return scan_blockmin(sq, index.codes, k,
+                             block=512 if k <= 32 else 128)
+
+    full = run_pipeline(
+        step_fn, scan_fn if index.codes is not None else None, queries,
+        index.table_subs(queries), init_state(nq, pool_size, dev),
+        schedule=schedule, caps=caps, batch_caps=batch_caps, knn=k,
+        pool_size=pool_size,
+        retry_caps=retry_caps if retry_caps != caps else None,
+        retry_budget=min(nq, max(64, nq // 4)), scan_budget=scan_budget,
+        scan_dominance=(nq // 2 if scan_budget
+                        and nq >= SCAN_DOMINANCE_MIN_NQ else 0))
+    return _apply_fallbacks(
+        index, queries, scfg, _cap, k,
+        dists=full.pool_dist[:, :k].clone(), ids=full.pool_id[:, :k].clone(),
+        radius=full.radius.clamp(max=127), overflow=full.overflow,
+        not_done=~full.done, n_probes=full.n_probes.clamp(max=0xFFFF),
+        n_nonempty=full.n_nonempty, n_cands=full.n_cands)
+
+
+def mih_search_dispatch(index: MIHIndex, queries,
+                        scfg: SearchConfig = SearchConfig()):
+    """The reference's launch-without-waiting half of a pipelined search."""
+    raise NotImplementedError(
+        "mih_search_dispatch / mih_search_finalize pipelining is not ported "
+        "yet: ROADMAP.md Queue 1 item 3; call mih_search")
+
+
+def mih_search_finalize(handle):
+    """The reference's wait-and-fallback half of a pipelined search."""
+    raise NotImplementedError(
+        "mih_search_dispatch / mih_search_finalize pipelining is not ported "
+        "yet: ROADMAP.md Queue 1 item 3; call mih_search")
+
+
+def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
+                     scfg: SearchConfig, _cap: Optional[int], k: int, *,
+                     dists, ids, radius, overflow, not_done, n_probes,
+                     n_nonempty, n_cands) -> SearchResult:
+    """Overflow retry at 4x caps, then the exact linear scan for queries
+    still unfinished (or overflowed at a cap that already covers n)."""
+    redo = overflow & ~not_done
+    base_cap = _cap or scfg.candidate_cap
+    if bool(redo.any()):
+        if base_cap < index.n:
+            idxs = torch.nonzero(redo).flatten()
+            new_cap = min(base_cap * 4, max(index.n, 8))
+            # bound the retry's candidate slots (~0.5 GB of int32 pairs)
+            max_rows = max(64, (1 << 25) // max(new_cap, 1))
+            for lo in range(0, idxs.shape[0], max_rows):
+                part = idxs[lo:lo + max_rows]
+                sub = mih_search(index, queries[part], scfg, _cap=new_cap)
+                dists[part] = sub.dists
+                ids[part] = sub.ids
+                radius[part] = sub.radius
+        else:
+            # range budgets are consumed in whole blocks, so cap >= n does
+            # not prove completeness: never drop a set overflow flag
+            not_done = not_done | redo
+    if bool(not_done.any()):
+        if index.codes is None:
+            raise ValueError(
+                "queries unfinished at max_enum_radius and index has no "
+                "code array for linear fallback; raise max_enum_radius")
+        idxs = torch.nonzero(not_done).flatten()
+        ld, li = linear_lib.linear_search(queries[idxs], index.codes, k)
+        dists[idxs] = ld
+        ids[idxs] = li
+    return SearchResult(dists=dists, ids=ids, radius=radius,
+                        n_probes=n_probes, n_nonempty=n_nonempty,
+                        n_cands=n_cands)
