@@ -9,11 +9,13 @@ import torch
 
 from tests import reference_model as ref
 from verticut_tpu import codes as jcodes
+from verticut_tpu.ops import hamming as jhamming
 from verticut_tpu.ops.pallas import (pallas_blockmin, pallas_blockmin_t,
                                      pallas_blockmin_t2)
 from verticut_tpu_torch import bits
 from verticut_tpu_torch.kernels import blockmin as kb
 from verticut_tpu_torch.ops import hamming
+from verticut_tpu_torch.ops.hamming import ENGINES
 from verticut_tpu_torch.search import linear_search
 
 
@@ -58,6 +60,25 @@ def test_twin_matches_rowmajor_kernel_all_blocks(block, n):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("block", [64, 128, 256, 512])
+def test_twin_matches_rowmajor_kernel_at_kernel_blocks(block):
+    """K3 at the blocks its CUDA counterpart now takes, on a corpus padded
+    to 128 * block rows whose last valid block straddles n; the pad rows
+    hold random codes, which both sides must ignore."""
+    npad = 128 * block
+    n = npad - 3 * block - block // 2 - 5
+    raw_db, raw_q = _raw(block + 1, npad, 9)
+    raw_db[n - 1] = raw_q[0]                    # in the straddling block
+    raw_db[n] = raw_q[1]                        # first pad row: excluded
+    q, db = jcodes.pack_bytes(raw_q), jcodes.pack_bytes(raw_db)
+    want = pallas_blockmin(jnp.asarray(q), jnp.asarray(db), n, block=block,
+                           interpret=True)
+    got = kb.blockmin(bits.as_codes(q), bits.as_codes(db), n, block)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert int(got[0, (n - 1) // block]) == 0
+    assert (got[:, -(-n // block):] == 129).all()
+
+
 def _adversarial(seed, n, nq):
     raw_db, raw_q = _raw(seed, n, nq)
     raw_db[n - 3] = raw_q[0] ^ np.uint8(1)      # in the straddling block
@@ -83,6 +104,35 @@ def test_scans_match_brute_force(k):
     for method in ("auto", "blockmin", "popcount"):
         d, i = linear_search(jcodes.pack_bytes(raw_q), db, k, method=method)
         assert np.array_equal(d.numpy(), ed) and np.array_equal(i.numpy(), ei)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_scan_blockmin_engines_match_jax(engine):
+    """Every engine of the port runs the same pass 1; each equals the JAX
+    scan (its XLA engine: the Pallas one has no CPU mode) and brute
+    force, chunk arguments included."""
+    n, k = 9000, 12
+    raw_db, raw_q = _adversarial(5, n, 7)
+    ed, ei = ref.brute_force(raw_q, raw_db, k)
+    q = bits.as_codes(jcodes.pack_bytes(raw_q))
+    db = bits.as_codes(jcodes.pack_bytes(raw_db))
+    jd, ji = jhamming.scan_blockmin(jnp.asarray(jcodes.pack_bytes(raw_q)),
+                                    jnp.asarray(jcodes.pack_bytes(raw_db)),
+                                    k, chunk=4096, block=256, engine="xla")
+    for chunk, block in [(4096, 256), (65536, 512), (512, 64)]:
+        d, i = hamming.scan_blockmin(q, db, k, chunk=chunk, block=block,
+                                     engine=engine)
+        assert np.array_equal(d.numpy(), ed) and np.array_equal(i.numpy(), ei)
+        assert np.array_equal(d.numpy(), np.asarray(jd))
+        assert np.array_equal(i.numpy(), np.asarray(ji))
+
+
+def test_scan_blockmin_rejects_what_the_reference_rejects():
+    q = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="engine"):
+        hamming.scan_blockmin(q, q, 2, engine="mosaic")
+    with pytest.raises(ValueError, match="multiple of block"):
+        hamming.scan_blockmin(q, q, 2, chunk=1000, block=512)
 
 
 def test_scans_pad_when_corpus_is_smaller_than_k():

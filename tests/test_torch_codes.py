@@ -79,3 +79,15 @@ def test_pack_keys_order_and_roundtrip():
     dd, ii = topk.unpack_keys(k)
     assert dd.tolist() == [[3, 0, 128, 3, 0x7FFFFFFF]]
     assert ii.tolist() == [[5, 9, (1 << 24) - 1, 2, -1]]
+
+
+def test_unpack_bits_pm1_matches():
+    rng = np.random.default_rng(4)
+    c = _top_bit_codes(rng, 9)
+    want = np.asarray(jcodes.unpack_bits_pm1(jnp.asarray(c), jnp.float32))
+    got = tcodes.unpack_bits_pm1(bits.as_codes(c))
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    # the dot of two +-1 rows is B - 2 * hamming
+    dot = got @ got.T
+    ham = tcodes.pairwise_hamming(bits.as_codes(c), bits.as_codes(c))
+    assert torch.equal(dot.to(torch.int32), 128 - 2 * ham)

@@ -1,6 +1,7 @@
 """Tests of verticut_tpu_torch that need an NVIDIA GPU: the CUDA blockmin
-kernel against its plain twin, and the search path on the card against
-the popcount oracle. Exact equality throughout. They skip without CUDA.
+and pairwise kernels against their plain twins, and the search paths on
+the card (fused and loop driver, every linear_search method) against the
+popcount oracle. Exact equality throughout. They skip without CUDA.
 
 This file imports neither jax nor verticut_tpu, so on a machine without
 JAX it runs apart from tests/conftest.py:
@@ -16,7 +17,9 @@ from verticut_tpu_torch import bits, codes
 from verticut_tpu_torch.config import MIHConfig, SearchConfig
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.kernels import blockmin as kb
+from verticut_tpu_torch.kernels import pairwise as kp
 from verticut_tpu_torch.search import linear_search, mih_search
+from verticut_tpu_torch.search.linear import METHODS
 
 pytestmark = pytest.mark.gpu
 
@@ -45,16 +48,70 @@ def test_kernel_matches_twin(cuda_device, nq, n_rows, n):
         assert torch.equal(got, kb.blockmin_reference(q, db, n, block))
 
 
+def test_unsupported_blocks_raise_on_the_card(cuda_device):
+    q = torch.zeros((3, 4), dtype=torch.int32, device=cuda_device)
+    for block in (16, 1024, 2048):
+        with pytest.raises(ValueError, match="block"):
+            kb.blockmin(q, q, 3, block)
+
+
+@pytest.mark.parametrize("nq,n", [(1, 1), (70, 5001), (300, 1025),
+                                  (1000, 131073)])
+def test_pairwise_kernel_matches_twin(cuda_device, nq, n):
+    rng = np.random.default_rng(nq + n)
+    q = bits.as_codes(rng.integers(0, 1 << 32, (nq, 4), dtype=np.uint32))
+    db = bits.as_codes(rng.integers(0, 1 << 32, (n, 4), dtype=np.uint32))
+    db[n // 2] = q[0]
+    q, db = q.to(cuda_device), db.to(cuda_device)
+    before = kp.launches
+    got = kp.pairwise(q, db)
+    torch.cuda.synchronize()
+    assert kp.launches == before + 1
+    assert torch.equal(got, kp.pairwise_reference(q, db))
+
+
 @pytest.mark.parametrize("uniform", [False, True])
-def test_mih_search_on_card_matches_oracle(cuda_device, uniform):
+@pytest.mark.parametrize("fused", [True, False])
+def test_mih_search_on_card_matches_oracle(cuda_device, uniform, fused):
     packed = codes.clustered_codes(2, 100_000, 128, n_clusters=500,
                                    flip_p=0.02)
     q = (codes.random_codes(9, 1024, 128) if uniform
          else packed[:1024] ^ np.uint32(5))
     index = build_index(packed, MIHConfig(), device=cuda_device)
     before = kb.launches
-    res = mih_search(index, q, SearchConfig(knn=10))
+    res = mih_search(index, q, SearchConfig(knn=10, fused=fused))
     od, oi = linear_search(q, index.codes, 10, method="popcount")
     assert torch.equal(res.dists, od) and torch.equal(res.ids, oi)
-    if uniform:                       # the full-batch scan ran the kernel
+    if uniform:              # the scan tier or the fallback ran the kernel
         assert kb.launches > before
+
+
+def test_approximate_drivers_agree_on_card(cuda_device):
+    packed = codes.clustered_codes(3, 100_000, 128, n_clusters=500,
+                                   flip_p=0.02)
+    q = bits.as_codes(packed[:512] ^ np.uint32(3), cuda_device)
+    index = build_index(packed, MIHConfig(), device=cuda_device)
+    scfg = SearchConfig(knn=10, approximate=True)
+    a = mih_search(index, q, scfg)
+    b = mih_search(index, q, SearchConfig(knn=10, approximate=True,
+                                          fused=False))
+    assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
+    true_d = codes.hamming_distance(index.codes[a.ids.long()], q[:, None])
+    assert torch.equal(true_d, a.dists)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_linear_search_methods_on_card(cuda_device, method):
+    rng = np.random.default_rng(6)
+    db = bits.as_codes(rng.integers(0, 1 << 32, (200_003, 4),
+                                    dtype=np.uint32), cuda_device)
+    q = db[:300].clone()
+    q[:, 1] ^= 7
+    od, oi = linear_search(q, db, 25, method="popcount")
+    launches = (kb.launches, kp.launches)
+    d, i = linear_search(q, db, 25, method=method)
+    assert torch.equal(d, od) and torch.equal(i, oi)
+    if method in ("auto", "blockmin"):
+        assert kb.launches > launches[0]
+    if method == "pallas":
+        assert kp.launches > launches[1]

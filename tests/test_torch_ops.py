@@ -153,3 +153,36 @@ def test_merge_strips_and_kth_stats_match(p):
         kg = ttopk.kth_stats(got[0], got[1], k)
         for g, w in zip(kg, kw, strict=True):
             assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def _scan_keys(d, i):
+    """JAX (dist, id) rows -> the port's ascending ``dist << 32 | id``."""
+    return (np.asarray(d).astype(np.int64) << 32) | np.asarray(i)
+
+
+@pytest.mark.parametrize("t,k", [(700, 10), (5000, 100), (6144, 7), (5, 9)])
+def test_chunk_topk_affine_and_merge_match(t, k):
+    """Chunk selection with many ties (distances 0..15), at widths that
+    take the JAX blockwise and wide-strip branches, then a merge of two
+    chunks into a running pool; ties go to the lower id on both sides."""
+    rng = np.random.default_rng(t + k)
+    q = 6
+    d0 = rng.integers(0, 16, size=(q, t)).astype(np.int32)
+    d1 = rng.integers(0, 16, size=(q, t)).astype(np.int32)
+    kk = min(k, t)
+    jd, ji = jtopk.chunk_topk_affine(jnp.asarray(d0), 0, k, t)
+    got0 = ttopk.chunk_topk_affine(_t(d0), 0, k)
+    assert got0.shape == (q, kk)
+    assert np.array_equal(got0.numpy(), _scan_keys(jd, ji)[:, :kk])
+    cd, ci = jtopk.chunk_topk_affine(jnp.asarray(d1), t, k, t)
+    got1 = ttopk.chunk_topk_affine(_t(d1), t, k)
+    pool = ttopk.merge_topk(ttopk.merge_topk(got0.new_empty((q, 0)), got0, k),
+                            got1, k)
+    if kk == k:
+        md, mi = jtopk.merge_topk_packed(jd, ji, cd, ci)
+        assert np.array_equal(pool.numpy(), _scan_keys(md, mi))
+    both = np.concatenate([d0, d1], -1)
+    order = np.lexsort((np.broadcast_to(np.arange(2 * t), both.shape), both),
+                       axis=-1)[:, :min(k, 2 * t)]
+    want = _scan_keys(np.take_along_axis(both, order, -1), order)
+    assert np.array_equal(pool.numpy(), want)

@@ -1,7 +1,9 @@
-"""The port's mih_search against the JAX package's fused mih_search, the
-slice as a whole: equal dists, ids, radius, n_probes, n_nonempty and
-n_cands (tolerance 0) on the same corpus, index and queries."""
+"""The port's mih_search against the JAX package's mih_search, the slice
+as a whole: the fused and the loop driver, exact and approximate mode.
+Equal dists, ids, radius, n_probes, n_nonempty and n_cands (tolerance 0)
+on the same corpus, index and queries."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -12,6 +14,7 @@ import pytest
 from verticut_tpu import codes as jcodes
 from verticut_tpu.config import MIHConfig, SearchConfig
 from verticut_tpu.index import build_index as jax_build_index
+from verticut_tpu.search import linear_search as jax_linear_search
 from verticut_tpu.search import mih_search as jax_mih_search
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
@@ -34,13 +37,13 @@ def _perturbed(packed, nq, seed):
     return q
 
 
-def _assert_parity(port_index, jax_index, queries, scfg):
+def _assert_parity(port_index, jax_index, queries, scfg, rows=slice(None)):
     got = mih_search(port_index, queries, scfg)
     want = jax_mih_search(jax_index, queries, scfg)
     for f in FIELDS:
-        assert np.array_equal(getattr(got, f).numpy(),
-                              np.asarray(getattr(want, f))), f
-    return got
+        assert np.array_equal(getattr(got, f).numpy()[rows],
+                              np.asarray(getattr(want, f))[rows]), f
+    return got, want
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +62,7 @@ def test_mih_search_matches_jax(clustered, uniform, nq, k):
     q = (jcodes.random_codes(99, nq, 128) if uniform
          else _perturbed(packed, nq, seed=nq + k))
     scfg = SearchConfig(knn=k, candidate_cap=8192, max_enum_radius=5)
-    got = _assert_parity(port_index, jax_index, q, scfg)
+    got, _ = _assert_parity(port_index, jax_index, q, scfg)
     if uniform:
         # the dominance gate skipped every stage after the first and the
         # scan ladder resolved the whole batch
@@ -95,15 +98,105 @@ def test_overflow_retry_ladders_match_jax(monkeypatch):
     assert calls["states"] >= 2 + calls["retries"]
 
 
+@pytest.mark.parametrize("n,n_tables,k,approx", [
+    (500, 4, 10, False),
+    (400, 16, 5, False),
+    (600, 4, 5, True),
+])
+@pytest.mark.parametrize("fused", [False, True])
+def test_drivers_match_jax_small(n, n_tables, k, approx, fused):
+    """The cases of the JAX package's fused-equals-loop test, each driver
+    against the JAX driver of the same flags."""
+    rng = np.random.default_rng(n + k)
+    packed = jcodes.pack_bytes(
+        rng.integers(0, 256, size=(n, 16), dtype=np.uint8))
+    cfg = MIHConfig(bits=128, n_tables=n_tables)
+    scfg = SearchConfig(knn=k, approximate=approx, approximate_factor=4,
+                        candidate_cap=1024, fused=fused)
+    _assert_parity(build_index(packed, cfg, device="cpu"),
+                   jax_build_index(packed, cfg, directory="range"),
+                   packed[:32], scfg)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_loop_driver_matches_jax(clustered, k):
+    packed, port_index, jax_index = clustered
+    q = _perturbed(packed, 64, seed=64 + k)
+    scfg = SearchConfig(knn=k, candidate_cap=8192, max_enum_radius=5,
+                        fused=False)
+    got, _ = _assert_parity(port_index, jax_index, q, scfg)
+    fused = mih_search(port_index, q, dataclasses.replace(scfg, fused=True))
+    for f in FIELDS:                      # below SCAN_DOMINANCE_MIN_NQ
+        assert np.array_equal(getattr(got, f).numpy(),
+                              getattr(fused, f).numpy()), f
+
+
+def test_loop_driver_compacts_twice(clustered):
+    """At 2048 queries the loop driver compacts the batch twice (to 512
+    rows, then to 64), and the second compaction retires pad rows. The
+    JAX loop driver then writes a pad row over its last query's result
+    (ROADMAP.md Queue 3): the port equals it on every other row, and
+    equals brute force on the last 64."""
+    packed, port_index, jax_index = clustered
+    q = _perturbed(packed, 2048, seed=4)
+    scfg = SearchConfig(knn=10, candidate_cap=8192, max_enum_radius=5,
+                        fused=False)
+    got, want = _assert_parity(port_index, jax_index, q, scfg,
+                               rows=slice(0, -1))
+    od, oi = jax_linear_search(q[-64:], packed, 10)
+    assert np.array_equal(got.dists[-64:].numpy(), np.asarray(od))
+    assert np.array_equal(got.ids[-64:].numpy(), np.asarray(oi))
+    assert not np.array_equal(np.asarray(want.dists)[-1], np.asarray(od)[-1])
+    assert (got.radius.numpy() >= 1).all() and (got.radius == 3).any()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_approximate_matches_jax_at_production_shape(fused):
+    """The JAX package's approximate-mode test shape: 60k codes, 48
+    queries two bit flips from a corpus row, k = 10, a k * 20 pool."""
+    rng = np.random.default_rng(42)
+    n, nq = 60_000, 48
+    raw_db = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    raw_q = raw_db[rng.integers(0, n, nq)].copy()
+    for i in range(nq):
+        for b in rng.integers(0, 128, 2):
+            raw_q[i, b // 8] ^= np.uint8(1 << (b % 8))
+    packed = jcodes.pack_bytes(raw_db)
+    scfg = SearchConfig(knn=10, approximate=True, candidate_cap=8192,
+                        fused=fused)
+    got, _ = _assert_parity(build_index(packed, CFG, device="cpu"),
+                            jax_build_index(packed, CFG, directory="range"),
+                            jcodes.pack_bytes(raw_q), scfg)
+    assert (got.radius <= 3).all() and (got.ids >= 0).all()
+
+
+def test_empty_fused_schedule_runs_the_loop_driver(monkeypatch):
+    """fused_max_masks=0 admits no radius stage: the fused request falls
+    through to the loop driver, as in the reference."""
+    rng = np.random.default_rng(1)
+    packed = jcodes.pack_bytes(
+        rng.integers(0, 256, size=(3000, 16), dtype=np.uint8))
+    calls = []
+    loop = single._mih_search_loop
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return loop(*a, **kw)
+
+    monkeypatch.setattr(single, "_mih_search_loop", spy)
+    _assert_parity(build_index(packed, CFG, device="cpu"),
+                   jax_build_index(packed, CFG, directory="range"),
+                   packed[:40], SearchConfig(knn=10, fused_max_masks=0))
+    assert calls
+
+
 def test_unported_options_raise():
     packed = jcodes.random_codes(3, 500, 128)
     index = build_index(packed, CFG, device="cpu")
     q = packed[:4]
-    for kw, item in [({"fused": False}, "item 1"),
-                     ({"approximate": True}, "item 2"),
-                     ({"overflow_to_scan": True}, "item 3"),
-                     ({"fused_max_masks": 0}, "item 1")]:
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"overflow_to_scan": True},
+               {"overflow_to_scan": True, "fused": False}):
+        with pytest.raises(NotImplementedError, match="item 3"):
             mih_search(index, q, SearchConfig(**kw))
     with pytest.raises(NotImplementedError, match="item 3"):
         mih_search_dispatch(index, q)
@@ -125,7 +218,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import verticut_tpu_torch, verticut_tpu_torch.index, "
         "verticut_tpu_torch.search, verticut_tpu_torch.ops.hamming, "
-        "verticut_tpu_torch.kernels.blockmin\n"
+        "verticut_tpu_torch.kernels.blockmin, "
+        "verticut_tpu_torch.kernels.pairwise\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'verticut_tpu')]\n"
         "assert not bad, bad\n")

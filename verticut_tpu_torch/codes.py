@@ -119,3 +119,18 @@ def pairwise_hamming(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """All-pairs distances ``[Q, W] x [N, W] -> int32[Q, N]``. Materializes
     ``[Q, N, W]``; callers chunk N."""
     return hamming_distance(queries[:, None, :], db[None, :, :])
+
+
+# --------------------------------------------------------------------------
+# The GEMM formulation: dist = (B - <+-1 bits, +-1 bits>) / 2
+# --------------------------------------------------------------------------
+
+def unpack_bits_pm1(codes: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``int32[..., W]`` codes -> ``+-1`` vectors ``[..., 32W]`` of
+    ``dtype``: bit k of word w (LSB first) at position ``32w + k``, set
+    bits +1. A dot product of two such vectors is ``B - 2 * hamming``."""
+    shifts = torch.arange(32, dtype=torch.int32, device=codes.device)
+    b = (codes[..., None] >> shifts) & 1     # the mask drops sign fill
+    b = b.reshape(*codes.shape[:-1], codes.shape[-1] * 32)
+    return (2 * b - 1).to(dtype)

@@ -9,11 +9,15 @@
 //
 // Replaces the TPU kernels of verticut_tpu/ops/pallas/linear_scan.py:
 //   K1 pallas_blockmin_t2 (body _blockmin_kernel_t2), Q in (2048, 8192];
-//   K2 pallas_blockmin_t  (body _blockmin_kernel_t),  every other Q.
-// Both compute this function as a +-1 GEMM, (32W - max dot) / 2, over a
-// transposed corpus copy; the split between them exists only for VMEM
-// residency. Rows past n are excluded here, which is the contract of K3
-// (pallas_blockmin), so callers need no tail fix-up.
+//   K2 pallas_blockmin_t  (body _blockmin_kernel_t),  every other Q;
+//   K3 pallas_blockmin    (body _blockmin_kernel), the row-major corpus.
+// All three compute this function as a +-1 GEMM, (32W - max dot) / 2; K1
+// and K2 over a transposed corpus copy (their split exists only for VMEM
+// residency), K3 over the row-major corpus with the straddling block
+// recomputed outside the kernel. Rows past n are excluded here, which is
+// K3's contract, so callers need no tail fix-up. Blocks 32..512 (powers of
+// two) are instantiated; K3 also takes 16, 1024 and 2048, which this
+// kernel does not.
 //
 // What bounds it on an H100: the integer pipe's POPC rate, not bytes. Each
 // (query, code) pair costs 4 XOR, 4 POPC, 3 IADD and 1 IMNMX; at Q = 8192
@@ -127,7 +131,10 @@ extern "C" int vt_blockmin(const void* queries, const void* db, void* out,
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (block) {
+    case 32: return (int)launch<32>(queries, db, out, n_queries, n, nb, s);
+    case 64: return (int)launch<64>(queries, db, out, n_queries, n, nb, s);
     case 128: return (int)launch<128>(queries, db, out, n_queries, n, nb, s);
+    case 256: return (int)launch<256>(queries, db, out, n_queries, n, nb, s);
     case 512: return (int)launch<512>(queries, db, out, n_queries, n, nb, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,37 +1,45 @@
 """Exact brute-force top-k scans.
 
-Port of the main-path scans of ``verticut_tpu/ops/hamming.py``:
+Port of the scans of ``verticut_tpu/ops/hamming.py`` (all but the
+transposed-copy ``scan_blockmin_t``, a TPU layout workaround):
 
 * :func:`scan_blockmin` — block-min pre-selection. Pass 1 computes each
   query's minimum distance over every ``block`` consecutive codes (the
   blockmin kernel on CUDA, its plain twin on the CPU); the ``k`` blocks
   with the smallest ``(min, block)`` keys provably hold the exact
   ``(dist, id)`` top-k; only those are gathered and rescored.
+* :func:`scan_pallas` — full distance matrices from the pairwise kernel
+  (K4's counterpart), selected chunk by chunk.
+* :func:`scan_matmul` — full distance matrices as a ±1 GEMM.
 * :func:`scan_popcount` — chunked full distance matrices and sorts: the
-  independent oracle, sharing no selection code with the engine.
+  independent oracle, sharing no selection code with the others.
 
-Both slice the query batch so their temporaries stay bounded: the
-``[Q, nb]`` block-min matrix alone is 2.5 GB at 10M codes, Q = 8192,
-block 128.
+All bound their temporaries: the block-min scan slices the query batch
+(the ``[Q, nb]`` block-min matrix alone is 2.5 GB at 10M codes, Q = 8192,
+block 128), the others cut the corpus into chunks whose ``[Q, chunk]``
+slab stays under :data:`SLICE_ELEMS` elements.
 """
 
 from __future__ import annotations
 
 import torch
 
-from verticut_tpu_torch.codes import hamming_distance, pairwise_hamming
-from verticut_tpu_torch.ops.topk import INF_DIST, INVALID_ID, select_asc
+from verticut_tpu_torch.codes import (hamming_distance, pairwise_hamming,
+                                      unpack_bits_pm1)
+from verticut_tpu_torch.ops import topk
+from verticut_tpu_torch.ops.topk import (INF_DIST, INVALID_ID, SCAN_SENTINEL,
+                                         select_asc)
 
-#: cap on elements per query slice: block-min keys in pass 1, gathered
-#: code words in the rescore
+#: cap on elements per slab: block-min keys of a query slice in pass 1,
+#: gathered code words in the rescore, a [Q, chunk] distance slab
 SLICE_ELEMS = 1 << 27
-#: invalid rescore / oracle key: above every ``dist << 32 | id``
-_SCAN_SENTINEL = 1 << 62
+#: scan_blockmin's engines, as the reference names them
+ENGINES = ("auto", "xla", "pallas")
 
 
 def _decode(top: torch.Tensor, k: int):
     """``dist << 32 | id`` keys ``[Q, kk]`` -> ``(dist, id)`` padded to k."""
-    invalid = top == _SCAN_SENTINEL
+    invalid = top == SCAN_SENTINEL
     d = torch.where(invalid, INF_DIST, top >> 32).to(torch.int32)
     i = torch.where(invalid, INVALID_ID, top & 0xFFFFFFFF).to(torch.int32)
     kk = top.shape[-1]
@@ -53,20 +61,37 @@ def _rescore_blocks(queries: torch.Tensor, db: torch.Tensor, n: int,
     g = db[pos.clamp(max=n - 1)]                            # [Q, kb, blk, W]
     d = hamming_distance(g, queries[:, None, None, :])
     keys = torch.where(pos < n, (d.to(torch.int64) << 32) | pos,
-                       _SCAN_SENTINEL).reshape(q, kb * block)
+                       SCAN_SENTINEL).reshape(q, kb * block)
     return _decode(select_asc(keys, min(k, kb * block)), k)
 
 
 def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
-                  block: int = 512):
+                  chunk: int = 65536, block: int = 512,
+                  engine: str = "auto"):
     """Exact top-k ``([Q, k], [Q, k])`` ascending by ``(dist, id)`` over
     the row-major ``int32[N, W]`` corpus, by block-min pre-selection.
 
     Selection proof (as in the reference): if a top-k winner lay in an
     unselected block, each of the k selected blocks would hold an element
     with a smaller distance, or an equal one at a smaller id, so k
-    elements would order before it."""
+    elements would order before it.
+
+    ``chunk`` and ``engine`` are the reference's arguments, kept so its
+    callers move over unchanged; neither changes the path or the result.
+    The reference pads the corpus to ``chunk`` rows and picks its pass 1
+    by ``engine``: the Pallas kernel K3 or an XLA GEMM folded over corpus
+    chunks, because Mosaic copies a row-major ``[N, 4]`` operand into a
+    32x lane-padded layout that does not fit beyond ~24M codes
+    (``hamming.py:136-146``). The port has one pass 1 for every engine,
+    :func:`kernels.blockmin.blockmin`, which reads the row-major corpus in
+    place; its query slicing bounds the ``[Q, nb]`` matrix. It pads
+    nothing, so ``chunk`` only has to be a multiple of ``block``, as the
+    reference requires. An unknown engine raises."""
     from verticut_tpu_torch.kernels.blockmin import blockmin
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (one of {ENGINES})")
+    if chunk % block:
+        raise ValueError(f"chunk {chunk} not a multiple of block {block}")
     q, w = queries.shape
     n = db.shape[0]
     nb = -(-n // block)
@@ -90,6 +115,58 @@ def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
     return torch.cat(parts_d), torch.cat(parts_i)
 
 
+def _scan_chunks(queries: torch.Tensor, db: torch.Tensor, k: int,
+                 chunk: int, dist_fn):
+    """Exact top-k over corpus chunks of at most ``chunk`` rows, fewer
+    where the ``[Q, chunk]`` slab would pass :data:`SLICE_ELEMS` elements.
+    ``dist_fn(queries, rows) -> int32[Q, len(rows)]``. Each chunk's top-k
+    keys merge into a running ``[Q, k]`` pool; the last chunk is shorter,
+    so no row is padded or masked."""
+    q = queries.shape[0]
+    ch = max(1, min(chunk, SLICE_ELEMS // max(q, 1)))
+    pool = torch.empty((q, 0), dtype=torch.int64, device=queries.device)
+    for c0 in range(0, db.shape[0], ch):
+        keys = topk.chunk_topk_affine(dist_fn(queries, db[c0:c0 + ch]), c0, k)
+        pool = topk.merge_topk(pool, keys, k)
+    return _decode(pool, k)
+
+
+def scan_pallas(queries: torch.Tensor, db: torch.Tensor, k: int,
+                chunk: int = 131072):
+    """Exact top-k from full distance matrices computed by
+    :func:`kernels.pairwise.pairwise`: the CUDA kernel that stands for
+    K4 ``pallas_pairwise_hamming`` on a GPU, its twin on the CPU. The
+    name is the reference's. The reference pads queries and the corpus
+    to the kernel's tiles; the port pads nothing."""
+    from verticut_tpu_torch.kernels.pairwise import pairwise
+    return _scan_chunks(queries.contiguous(), db.contiguous(), k, chunk,
+                        pairwise)
+
+
+def scan_matmul(queries: torch.Tensor, db: torch.Tensor, k: int,
+                chunk: int = 32768):
+    """Exact top-k via the ±1 GEMM, ``dist = (B - q_pm1 . d_pm1) / 2``,
+    one ``torch.matmul`` per corpus chunk; the reference computes it in
+    plain XLA as well, outside any Pallas kernel.
+
+    The dtypes keep every product and sum exact. The operands are ±1 and
+    the dot is an even integer with ``|dot| <= B``: bfloat16 holds every
+    such value up to B = 256 and the GEMM accumulates in float32, so
+    CUDA tensors of codes up to 256 bits take bfloat16 (the tensor
+    cores); wider codes and CPU tensors take float32 (on the card with
+    TF32 off, PyTorch's default)."""
+    bits = 32 * queries.shape[1]
+    dt = (torch.bfloat16 if queries.is_cuda and bits <= 256
+          else torch.float32)
+    qpm = unpack_bits_pm1(queries, dt)
+
+    def dist(_q, rows):
+        dot = (qpm @ unpack_bits_pm1(rows, dt).T).to(torch.int32)
+        return (bits - dot) >> 1
+
+    return _scan_chunks(queries, db, k, chunk, dist)
+
+
 def scan_popcount(queries: torch.Tensor, db: torch.Tensor, k: int,
                   chunk: int = 65536):
     """Exact top-k by full distance matrices over corpus chunks, each
@@ -97,8 +174,7 @@ def scan_popcount(queries: torch.Tensor, db: torch.Tensor, k: int,
     q, w = queries.shape
     n = db.shape[0]
     ch = max(1, min(chunk, SLICE_ELEMS // 4 // max(q * w, 1)))
-    pool = torch.full((q, 0), _SCAN_SENTINEL, dtype=torch.int64,
-                      device=queries.device)
+    pool = torch.empty((q, 0), dtype=torch.int64, device=queries.device)
     for c0 in range(0, n, ch):
         c1 = min(c0 + ch, n)
         d = pairwise_hamming(queries, db[c0:c1])

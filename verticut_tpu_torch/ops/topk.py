@@ -1,6 +1,7 @@
 """Bounded top-k selection and dedup merges over packed ``int64`` keys.
 
-The main-path subset of ``verticut_tpu/ops/topk.py``. A pool per query is
+The port of ``verticut_tpu/ops/topk.py`` that the search paths use. A pool
+per query is
 ``(dist int32[Q, P], id int32[Q, P])`` ascending by ``(dist, id)``; empty
 slots hold ``(INF_DIST, -1)``. Candidates are selected as ascending keys
 ``dist << 24 | id`` (:func:`pack_keys`), unique per element, so
@@ -8,6 +9,9 @@ slots hold ``(INF_DIST, -1)``. Candidates are selected as ascending keys
 values. Ids must stay below 2^24 (:func:`can_pack`); the
 reference's wide-id ``_pos`` variants are not ported yet (ROADMAP.md,
 Queue 1).
+
+The brute-force scans select on wider keys, ``dist << 32 | id``
+(:func:`chunk_topk_affine`, :func:`merge_topk`), which hold any int32 id.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ PACKED_ID_BITS = 24
 _ID_MASK = (1 << PACKED_ID_BITS) - 1
 #: the invalid key: above every valid ``dist << 24 | id`` key (dist <= 254)
 SENTINEL_KEY = 0xFFFFFFFF
+
+#: the invalid scan key: above every valid ``dist << 32 | id`` key
+SCAN_SENTINEL = 1 << 62
 
 #: widest chunk axis the chunk-min pre-selection admits, and the widest
 #: strip it selects (the reference's _CHUNKMIN_MAX_CHB and _TOPK_WIDE;
@@ -128,3 +135,31 @@ def merge_strips_packed(pool_dist: torch.Tensor, pool_id: torch.Tensor,
 def kth_stats(pool_dist: torch.Tensor, pool_id: torch.Tensor, k: int):
     """(pool has >= k valid entries, distance of the kth entry) per query."""
     return pool_id[:, k - 1] >= 0, pool_dist[:, k - 1]
+
+
+def chunk_topk_affine(dists: torch.Tensor, base: int, k: int) -> torch.Tensor:
+    """One corpus chunk's smallest ``k`` pairs for position-affine ids
+    (``id = base + position``): ``int32[Q, T] -> int64[Q, min(k, T)]``
+    ascending keys ``dist << 32 | id``.
+
+    The counterpart of the reference's ``chunk_topk_affine``. The key is
+    unique per element, so ties go to the lower id, the reference's order,
+    and it holds any int32 id, so no ``can_pack`` branch exists. The
+    reference masks positions ``>= n_valid`` of a padded last chunk; the
+    port's scans pad nothing (their last chunk is shorter), so there is no
+    mask."""
+    t = dists.shape[-1]
+    ids = torch.arange(base, base + t, device=dists.device)
+    keys = (dists.to(torch.int64) << 32) | ids
+    return torch.topk(keys, min(k, t), dim=-1, largest=False,
+                      sorted=True).values
+
+
+def merge_topk(pool: torch.Tensor, keys: torch.Tensor, k: int) -> torch.Tensor:
+    """A scan's running pool of ascending ``dist << 32 | id`` keys merged
+    with one chunk's: the smallest ``k`` of both, ascending. No dedup: a
+    scan sees each id once (the counterpart of the reference's
+    ``merge_topk_packed`` and ``merge_topk``)."""
+    both = torch.cat([pool, keys], dim=-1)
+    return torch.topk(both, min(k, both.shape[-1]), dim=-1, largest=False,
+                      sorted=True).values

@@ -1,29 +1,39 @@
-"""Single-device batched exact MIH search: the fused staged driver.
+"""Single-device batched MIH search: the fused staged driver and the loop
+driver, exact and approximate.
 
-Port of the exact, fused path of ``verticut_tpu/search/single.py`` (what
-``mih_search`` runs by default). Per radius stage and per table,
+Port of ``verticut_tpu/search/single.py``. Per radius stage and per table,
 :func:`radius_step` probes the range directory with every flipped prefix,
 fetches and scores the entry blocks, keeps the table's top-P, merges the
-strips into the pool and applies the MIH stop rule. :func:`run_pipeline`
-drives the stages with compaction to shrinking batch budgets, an overflow
-retry ladder and a brute-force scan ladder; :func:`_apply_fallbacks` then
-re-runs still-overflowed queries at larger caps and scans what remains.
+strips into the pool and applies the stop rule: the exact MIH rule, or in
+approximate mode a full ``k * approximate_factor`` pool.
+:func:`run_pipeline` drives the stages with compaction to shrinking batch
+budgets, an overflow retry ladder and a brute-force scan ladder (the
+fused driver, the default); :func:`_mih_search_loop` runs one stage at a
+time and compacts between them (the loop driver, ``fused=False``, and the
+fall-through when no radius stage fits ``fused_max_masks``).
+:func:`_apply_fallbacks` then re-runs still-overflowed queries at larger
+caps and scans what remains.
 
 Where the reference's single device program branches with ``lax.cond``,
 the port reads a scalar from the device and branches on the host. The
-stats are returned as the reference's packed result row carries them:
-``radius`` saturated at 127 and ``n_probes`` at 0xFFFF.
+fused driver returns the stats as the reference's packed result row
+carries them: ``radius`` saturated at 127 and ``n_probes`` at 0xFFFF; the
+loop driver, as the reference's, saturates neither.
+
+The reference's loop driver writes its last query's result from a pad row
+when a batch is compacted twice (ROADMAP.md Queue 3); the port retires
+real rows only.
 
 Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md
-Queue 1): the loop driver ``fused=False`` and an empty fused schedule
-(item 1), ``approximate=True`` (item 2), ``overflow_to_scan=True`` and the
-``mih_search_dispatch`` / ``mih_search_finalize`` pipelining (item 3), and
-ids of 2^24 and more (the ``_pos`` selections, item 4).
+Queue 1): ``overflow_to_scan=True`` and the ``mih_search_dispatch`` /
+``mih_search_finalize`` pipelining (item 3), and ids of 2^24 and more (the
+``_pos`` selections, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -108,10 +118,13 @@ def _table_candidates_range(table: MIHTable, queries: torch.Tensor,
 
 def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
                 masks: torch.Tensor, state: SearchState, *, radius: int,
-                n_tables: int, knn: int, cap: int,
-                s_bits: int) -> SearchState:
-    """Process one radius group for the whole batch (exact stop rule).
-    Each table's candidates are cut to a pool-wide strip as soon as they
+                n_tables: int, knn: int, cap: int, s_bits: int,
+                approximate: bool = False) -> SearchState:
+    """Process one radius group for the whole batch. Exact mode stops a
+    query when its kth distance is at most ``(radius + 1) * n_tables``;
+    approximate mode when its ``k * factor`` pool is full
+    (``search_worker.cc:136-137``); both at ``radius >= s_bits``. Each
+    table's candidates are cut to a pool-wide strip as soon as they
     are scored (ids are unique within one table at one step), so only one
     table's candidate slab is alive at a time."""
     blk = entry_block_size(queries.shape[-1])
@@ -132,8 +145,12 @@ def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
     pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
                                       torch.cat(strips, dim=-1),
                                       n_copies=n_tables + 1)
-    full, kth = topk.kth_stats(pd, pi, knn)
-    newly_done = (full & (kth <= (radius + 1) * n_tables)) | (radius >= s_bits)
+    if approximate:
+        newly_done = pi[:, -1] >= 0
+    else:
+        full, kth = topk.kth_stats(pd, pi, knn)
+        newly_done = full & (kth <= (radius + 1) * n_tables)
+    newly_done = newly_done | (radius >= s_bits)
     return SearchState(pool_dist=pd, pool_id=pi, done=state.done | newly_done,
                        radius=torch.where(state.done, state.radius, radius),
                        overflow=overflow, n_probes=n_probes,
@@ -174,10 +191,10 @@ def _cap_for_radius(scfg: SearchConfig, n: int, radii, mask_bits: int,
 
 def _radius_schedule(scfg: SearchConfig, cfg: MIHConfig, n: int,
                      mask_bits: int):
-    """Coalesced {0, 1} then one radius per stage, cut where enumerating
-    costs more fetched rows than scanning the corpus."""
+    """Coalesced {0, 1} (exact mode) then one radius per stage, cut where
+    enumerating costs more fetched rows than scanning the corpus."""
     max_r = min(scfg.max_enum_radius, mask_bits)
-    if scfg.coalesce_radii and max_r >= 1:
+    if scfg.coalesce_radii and not scfg.approximate and max_r >= 1:
         schedule = [(1, (0, 1))] + [(r, (r,)) for r in range(2, max_r + 1)]
     else:
         schedule = [(r, (r,)) for r in range(max_r + 1)]
@@ -340,13 +357,6 @@ def _check_supported(index: MIHIndex, scfg: SearchConfig) -> None:
         raise ValueError(
             "use_bitmap=True has no effect on the range-directory engine "
             "(range fetches subsume the occupancy test)")
-    if not scfg.fused:
-        raise NotImplementedError(
-            "fused=False (the loop driver) is not ported yet: ROADMAP.md "
-            "Queue 1 item 1")
-    if scfg.approximate:
-        raise NotImplementedError(
-            "approximate=True is not ported yet: ROADMAP.md Queue 1 item 2")
     if scfg.overflow_to_scan:
         raise NotImplementedError(
             "overflow_to_scan=True is not ported yet: ROADMAP.md Queue 1 "
@@ -366,30 +376,47 @@ def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
 def mih_search(index: MIHIndex, queries,
                scfg: SearchConfig = SearchConfig(),
                _cap: Optional[int] = None) -> SearchResult:
-    """Batched exact K-NN over the MIH index, on the index's device.
+    """Batched K-NN over the MIH index, on the index's device.
 
     ``queries``: ``uint32[Q, W]`` numpy codes or an ``int32[Q, W]`` tensor.
-    Runs the fused staged pipeline; queries whose candidate budgets still
-    overflowed are re-run at 4x caps, and queries unfinished at the last
-    stage take the exact linear scan."""
+    Runs the fused staged pipeline, or the loop driver when ``scfg.fused``
+    is off or no radius stage fits ``fused_max_masks``; queries whose
+    candidate budgets still overflowed are re-run at 4x caps, and queries
+    unfinished at the last stage take the exact linear scan."""
     scfg = effective_scfg(scfg)
     _check_supported(index, scfg)
-    cfg = index.cfg
-    dev = index.device
-    queries = as_codes(queries, dev).contiguous()
+    queries = as_codes(queries, index.device).contiguous()
     _check_query_shape(index, queries)
-    nq = queries.shape[0]
-    k, pool_size = scfg.knn, scfg.pool_size
     mask_bits = index.tables[0].directory.pbits   # probes are per prefix
-    schedule = tuple(
-        (r, g)
-        for r, g in _radius_schedule(scfg, cfg, index.n, mask_bits)
+    schedule = _radius_schedule(scfg, index.cfg, index.n, mask_bits)
+    fused_schedule = tuple(
+        (r, g) for r, g in schedule
         if sum(enumeration.n_masks(mask_bits, x) for x in g)
         <= scfg.fused_max_masks)
-    if not schedule:
-        raise NotImplementedError(
-            "no radius stage fits fused_max_masks; the reference then runs "
-            "the loop driver, not ported yet: ROADMAP.md Queue 1 item 1")
+    if scfg.fused and fused_schedule:
+        return _mih_search_fused(index, queries, scfg, _cap, fused_schedule)
+    return _mih_search_loop(index, queries, scfg, _cap, schedule)
+
+
+def _step_fn(index: MIHIndex, scfg: SearchConfig, r: int, cap: int):
+    """``radius_step`` at radius ``r`` and candidate cap ``cap``:
+    ``(queries, q_subs, masks, state) -> state``."""
+    return functools.partial(
+        radius_step, tuple(index.tables), radius=r,
+        n_tables=index.cfg.n_tables, knn=scfg.knn, cap=cap,
+        s_bits=index.cfg.s_bits, approximate=scfg.approximate)
+
+
+def _mih_search_fused(index: MIHIndex, queries: torch.Tensor,
+                      scfg: SearchConfig, _cap: Optional[int],
+                      schedule) -> SearchResult:
+    """The fused driver: the whole schedule through :func:`run_pipeline`,
+    then the host fallbacks."""
+    cfg = index.cfg
+    dev = index.device
+    nq = queries.shape[0]
+    k, pool_size = scfg.knn, scfg.pool_size
+    mask_bits = index.tables[0].directory.pbits
     scan_budget = min(nq, max(64, nq // 64)) if index.codes is not None else 0
     caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
                                          entry_block_size(cfg.n_words))
@@ -400,12 +427,9 @@ def mih_search(index: MIHIndex, queries,
         for i in range(len(schedule)))
     masks = [_flip_masks(mask_bits, g, dev) for _, g in schedule]
     retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
-    tables = tuple(index.tables)
 
     def step_fn(i, r, cap, cq, cqs, cs):
-        return radius_step(tables, cq, cqs, masks[i], cs, radius=r,
-                           n_tables=cfg.n_tables, knn=k, cap=cap,
-                           s_bits=cfg.s_bits)
+        return _step_fn(index, scfg, r, cap)(cq, cqs, masks[i], cs)
 
     def scan_fn(sq):
         # smaller blocks at large k: the rescore gathers k blocks per query
@@ -419,7 +443,9 @@ def mih_search(index: MIHIndex, queries,
         pool_size=pool_size,
         retry_caps=retry_caps if retry_caps != caps else None,
         retry_budget=min(nq, max(64, nq // 4)), scan_budget=scan_budget,
-        scan_dominance=(nq // 2 if scan_budget
+        # exact mode only: the gate sends a batch to the exact scan, which
+        # would upgrade approximate answers
+        scan_dominance=(nq // 2 if scan_budget and not scfg.approximate
                         and nq >= SCAN_DOMINANCE_MIN_NQ else 0))
     return _apply_fallbacks(
         index, queries, scfg, _cap, k,
@@ -427,6 +453,90 @@ def mih_search(index: MIHIndex, queries,
         radius=full.radius.clamp(max=127), overflow=full.overflow,
         not_done=~full.done, n_probes=full.n_probes.clamp(max=0xFFFF),
         n_nonempty=full.n_nonempty, n_cands=full.n_cands)
+
+
+# --------------------------------------------------------------------------
+# The loop driver
+# --------------------------------------------------------------------------
+
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def _compact(queries: torch.Tensor, q_subs: torch.Tensor,
+             state: SearchState, sel: torch.Tensor, n_act: int):
+    """Gather the rows ``sel`` (the active rows, then pad rows that copy
+    row 0); pad rows are marked done, so no step changes them."""
+    st = _take(state, sel)
+    pad = torch.arange(sel.shape[0], device=sel.device) >= n_act
+    return queries[sel], q_subs[sel], st._replace(done=st.done | pad)
+
+
+def _retire(final: SearchState, orig: torch.Tensor, state: SearchState,
+            rows: torch.Tensor) -> SearchState:
+    """``final`` with the original rows ``orig[rows]`` taken from ``state``
+    (``rows`` a boolean mask over the current batch); pad rows
+    (``orig < 0``) are skipped."""
+    rows = rows & (orig >= 0)
+    dst = orig[rows]
+    return SearchState(*(f.index_copy(0, dst, c[rows])
+                         for f, c in zip(final, state)))
+
+
+def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
+                     scfg: SearchConfig, _cap: Optional[int],
+                     schedule) -> SearchResult:
+    """The loop driver (the reference's ``fused=False`` path,
+    ``single.py:1091-1174``): every stage of the schedule runs on the
+    whole current batch, and the host reads the done flags after it (the
+    reference's per-radius barrier). Once the active rows fit in half the
+    batch, finished rows retire and the rest compact into a power-of-two
+    batch of at least 64 rows. A stage whose probe tensor would pass
+    2^26 elements runs in query slices."""
+    cfg = index.cfg
+    dev = index.device
+    nq = queries.shape[0]
+    k, pool_size = scfg.knn, scfg.pool_size
+    mask_bits = index.tables[0].directory.pbits
+    cur_q, cur_qs = queries, index.table_subs(queries)
+    state = init_state(nq, pool_size, dev)
+    final = init_state(nq, pool_size, dev)   # retired rows, original order
+    orig = torch.arange(nq, device=dev)      # batch row -> original row
+    for r, group in schedule:
+        cap = _cap or _cap_for_radius(scfg, index.n, group, mask_bits,
+                                      entry_block_size(cfg.n_words))
+        masks = _flip_masks(mask_bits, group, dev)
+        step = _step_fn(index, scfg, r, cap)
+        b = cur_q.shape[0]
+        if b * masks.shape[0] > (1 << 26) and b > 64:
+            sl = max(64, _pow2ceil((1 << 26) // max(masks.shape[0], 1)) // 2)
+            parts = [step(cur_q[lo:lo + sl], cur_qs[lo:lo + sl], masks,
+                          SearchState(*(leaf[lo:lo + sl] for leaf in state)))
+                     for lo in range(0, b, sl)]
+            state = SearchState(*(torch.cat(leaves)
+                                  for leaves in zip(*parts)))
+        else:
+            state = step(cur_q, cur_qs, masks, state)
+        n_active = int((~state.done).sum())
+        if n_active == 0:
+            break
+        new_batch = max(_pow2ceil(n_active), 64)
+        if new_batch <= b // 2:
+            final = _retire(final, orig, state, state.done)
+            act = torch.nonzero(~state.done).flatten()
+            sel = torch.cat([act, act.new_zeros(new_batch - n_active)])
+            cur_q, cur_qs, state = _compact(cur_q, cur_qs, state, sel,
+                                            n_active)
+            orig = torch.cat([orig[act],
+                              orig.new_full((new_batch - n_active,), -1)])
+    final = _retire(final, orig, state, torch.ones_like(state.done))
+    return _apply_fallbacks(
+        index, queries, scfg, _cap, k,
+        dists=final.pool_dist[:, :k].clone(),
+        ids=final.pool_id[:, :k].clone(), radius=final.radius,
+        overflow=final.overflow, not_done=~final.done,
+        n_probes=final.n_probes, n_nonempty=final.n_nonempty,
+        n_cands=final.n_cands)
 
 
 def mih_search_dispatch(index: MIHIndex, queries,
