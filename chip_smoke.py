@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result):
      paths give it: blockmin at Q = 8192 queries, N = 1M codes, blocks 512
      and 128, on the corpus as it is and padded to a multiple of
      128 * block as the reference's row-major kernel takes it; pairwise at
-     Q = 8192, N = 131072;
+     Q = 8192, N = 131072; the generic instances: blockmin at blocks 16,
+     1024 and 2048, and both kernels at 64- and 256-bit codes;
   4. the main path as bench.py drives it: 1M clustered 128-bit codes,
      m = 4 tables, 8192 perturbed queries at k = 10 and k = 100, then 8192
      uniform queries at k = 10; each cell checked against the popcount
@@ -27,9 +28,21 @@ Phases (any failure exits non-zero and prints no result):
      equal on every row both stop at one radius (the rest took the fused
      driver's exact scan tier and equal the oracle), every id at its
      returned distance; recall against the exact oracle printed;
-  8. scale: the blockmin check and the k = 10 cell at 10M codes (64-query
-     oracle).
-Phases 4 to 7 each set the kernels' launch counts to 0 before they run
+  8. dispatch / finalize at 1M: two handles in flight, finalized out of
+     order, equal to mih_search on every row;
+  9. a 64-bit index (MIHConfig(bits=64, n_tables=2), 1M codes) under 8192
+     uniform queries: all scan tier (the generic blockmin instance),
+     oracle-equal on 256;
+ 10. the oracle drive at 1M, k = 500 and 1000 (verticut_tpu_torch.
+     oracle_drive);
+ 11. scale: the reference's default corpus, 100M codes generated on the
+     card, built without the flat id columns; 8192 perturbed queries at
+     k = 10 and k = 100 and 8192 uniform queries at k = 10 through the
+     depth-4 dispatch / finalize pipeline, each checked against the
+     popcount oracle on 64 queries (dists and ids) and on every returned
+     id's true distance; the radius steps must take the wide-id (_pos)
+     selections and the result row the [Q, 2k + 3] layout.
+Phases 4 to 11 each set the kernels' launch counts to 0 before they run
 and read them after. The line before the last is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}.
 """
@@ -47,8 +60,9 @@ import numpy as np
 
 Q = 8192
 N_MAIN = 1_000_000
-N_SCALE = 10_000_000
+N_SCALE = 100_000_000
 N_PAIRWISE = 131_072
+N_SCALE_ORACLE = 64
 
 
 def log(*args):
@@ -58,19 +72,6 @@ def log(*args):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def bench_queries(packed, n_queries, seed=0):
-    """bench.py's queries: random corpus rows with 3 random bit flips."""
-    from verticut_tpu_torch import codes
-    rng = np.random.default_rng(seed)
-    sel = rng.integers(0, len(packed), n_queries)
-    qraw = codes.unpack_to_bytes(packed[sel])
-    flips = rng.integers(0, 128, (n_queries, 3))
-    for i in range(n_queries):
-        for b in flips[i]:
-            qraw[i, b // 8] ^= 1 << (b % 8)
-    return codes.pack_bytes(qraw)
 
 
 def kernel_vs_twin(torch, name, kernel, twin, args):
@@ -90,6 +91,7 @@ def kernel_vs_twin(torch, name, kernel, twin, args):
     del got, want
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    kernel(*args)
     e0.record()
     for _ in range(10):
         kernel(*args)
@@ -105,7 +107,7 @@ def blockmin_vs_twin(torch, kb, queries, db, block, n=None):
     n = db.shape[0] if n is None else n
     return kernel_vs_twin(
         torch, f"blockmin Q={queries.shape[0]} N={n} rows={db.shape[0]} "
-        f"block={block}", kb.blockmin, kb.blockmin_reference,
+        f"W={db.shape[1]} block={block}", kb.blockmin, kb.blockmin_reference,
         (queries, db, n, block))
 
 
@@ -117,17 +119,27 @@ def padded(torch, db, unit):
     return out
 
 
-def check_result(torch, name, res, codes_t, q, k):
+def check_result(torch, name, res, db, q, k):
     """Shape, a full top-k, ascending dists, and every id's true distance
-    equal to its returned distance."""
+    equal to its returned distance (``res`` on the host, ``db`` and ``q``
+    on the card)."""
     from verticut_tpu_torch import codes
     check(res.dists.shape == (len(q), k) and res.ids.shape == (len(q), k),
           f"{name}: result shape {tuple(res.dists.shape)}")
     check(bool((res.ids >= 0).all()), f"{name}: fewer than k results")
-    true_d = codes.hamming_distance(codes_t[res.ids.long()], q[:, None, :])
-    check(torch.equal(true_d, res.dists), f"{name}: ids disagree with dists")
+    true_d = codes.hamming_distance(db[res.ids.to(db.device).long()],
+                                    q[:, None, :])
+    check(torch.equal(true_d.cpu(), res.dists),
+          f"{name}: ids disagree with dists")
     check(bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()),
           f"{name}: dists not ascending")
+
+
+def oracle(q, db, k):
+    """The popcount oracle's (dists, ids), on the host."""
+    from verticut_tpu_torch.ops.hamming import scan_popcount
+    od, oi = scan_popcount(q, db, k)
+    return od.cpu(), oi.cpu()
 
 
 def timed(torch, fn):
@@ -137,30 +149,18 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def run_cell(torch, name, index, queries, scfg, n_oracle, kb):
+def run_cell(torch, name, index, q, scfg, n_oracle, kb):
     """Warm-up batch, then three timed batches; then the oracle and the
-    id/distance cross-check. Returns the kernel launches of the batches."""
-    from verticut_tpu_torch import bits
-    from verticut_tpu_torch.ops.hamming import scan_popcount
-    from verticut_tpu_torch.search import mih_search
-    q = bits.as_codes(queries, index.device)
+    id/distance cross-check. Returns the blockmin launches of the batches
+    and the last result."""
+    from verticut_tpu_torch.bench import latency
     before = kb.launches
-    t0 = time.perf_counter()
-    res = mih_search(index, q, scfg)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = mih_search(index, q, scfg)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    first_s, times, res = latency(index, q, scfg)
     launches = kb.launches - before
     k = scfg.knn
     check_result(torch, name, res, index.codes, q, k)
     t0 = time.perf_counter()
-    od, oi = scan_popcount(q[:n_oracle], index.codes, k)
-    torch.cuda.synchronize()
+    od, oi = oracle(q[:n_oracle], index.codes, k)
     oracle_s = time.perf_counter() - t0
     check(torch.equal(res.dists[:n_oracle], od), f"{name}: oracle dists")
     check(torch.equal(res.ids[:n_oracle], oi), f"{name}: oracle ids")
@@ -170,17 +170,16 @@ def run_cell(torch, name, index, queries, scfg, n_oracle, kb):
         f"{len(q) / min(times):.0f} queries/s; radius histogram {hist}; "
         f"blockmin launches {launches}; oracle ({n_oracle} queries, "
         f"{oracle_s:.2f} s) dists and ids equal")
-    return launches
+    return launches, res
 
 
 def linear_phase(torch, kb, kp, db, u_dev):
     """Phase 5: the linear_search methods against each other and the
     oracle. Returns the kernels' launches in the phase."""
-    from verticut_tpu_torch.ops.hamming import scan_popcount
     from verticut_tpu_torch.search import linear_search
     kb.launches = kp.launches = 0
     for k in (10, 100):
-        od, oi = scan_popcount(u_dev[:256], db, k)
+        od, oi = oracle(u_dev[:256], db, k)
         first = None
         for method in ("pallas", "matmul", "blockmin"):
             (d, i), cold = timed(torch, lambda: linear_search(
@@ -188,7 +187,8 @@ def linear_phase(torch, kb, kp, db, u_dev):
             (d, i), warm = timed(torch, lambda: linear_search(
                 u_dev, db, k, method=method))
             check(d.shape == (len(u_dev), k), f"linear {method} k={k}: shape")
-            check(torch.equal(d[:256], od) and torch.equal(i[:256], oi),
+            check(torch.equal(d[:256].cpu(), od)
+                  and torch.equal(i[:256].cpu(), oi),
                   f"linear {method} k={k}: oracle")
             if first is None:
                 first = (method, d, i)
@@ -211,7 +211,6 @@ def loop_phase(torch, kb, index, q_dev, u_dev, scfg):
     """Phase 6: the loop driver against the fused driver and the oracle.
     Returns the blockmin launches in the phase."""
     import dataclasses
-    from verticut_tpu_torch.ops.hamming import scan_popcount
     from verticut_tpu_torch.search import mih_search
     fused = mih_search(index, q_dev, scfg)
     loop_cfg = dataclasses.replace(scfg, fused=False)
@@ -222,7 +221,7 @@ def loop_phase(torch, kb, index, q_dev, u_dev, scfg):
     check(torch.equal(res.dists, fused.dists)
           and torch.equal(res.ids, fused.ids),
           "loop driver != fused driver on some row")
-    od, oi = scan_popcount(q_dev[:256], index.codes, scfg.knn)
+    od, oi = oracle(q_dev[:256], index.codes, scfg.knn)
     check(torch.equal(res.dists[:256], od) and torch.equal(res.ids[:256], oi),
           "loop driver != oracle")
     hist = torch.bincount(res.radius).tolist()
@@ -231,7 +230,7 @@ def loop_phase(torch, kb, index, q_dev, u_dev, scfg):
         f"{len(q_dev)} rows, oracle (256) equal")
     uq = u_dev[:256]
     ures, us = timed(torch, lambda: mih_search(index, uq, loop_cfg))
-    od, oi = scan_popcount(uq, index.codes, scfg.knn)
+    od, oi = oracle(uq, index.codes, scfg.knn)
     check(torch.equal(ures.dists, od) and torch.equal(ures.ids, oi),
           "loop driver, uniform queries != oracle")
     log(f"loop 1M uniform k=10, 256 queries: {us:.4f} s, oracle equal")
@@ -249,7 +248,6 @@ def approx_phase(torch, kb, index, q_dev, scfg):
     tier with the radius they had: those rows must equal the exact
     oracle."""
     import dataclasses
-    from verticut_tpu_torch.ops.hamming import scan_popcount
     from verticut_tpu_torch.search import mih_search
     acfg = dataclasses.replace(scfg, approximate=True)
     kb.launches = 0
@@ -269,10 +267,10 @@ def approx_phase(torch, kb, index, q_dev, scfg):
     check(bool(equal[same_r].all()),
           "approximate: fused != loop on a row both stop at one radius")
     spilled = torch.nonzero(~same_r).flatten()[:256]
-    sd, si = scan_popcount(q_dev[spilled], index.codes, scfg.knn)
+    sd, si = oracle(q_dev[spilled.to(q_dev.device)], index.codes, scfg.knn)
     check(torch.equal(a.dists[spilled], sd) and torch.equal(a.ids[spilled], si),
           "approximate: a row of the fused scan tier != the exact oracle")
-    od, oi = scan_popcount(q_dev[:256], index.codes, scfg.knn)
+    od, oi = oracle(q_dev[:256], index.codes, scfg.knn)
     recall = {f: float((r.ids[:256, :, None] == oi[:, None, :]).any(-1)
                        .float().mean()) for f, r in out.items()}
     log(f"approx: fused == loop on {int(equal.sum())} of {len(q_dev)} rows, "
@@ -281,6 +279,156 @@ def approx_phase(torch, kb, index, q_dev, scfg):
         f"equal on {len(spilled)} checked); recall@{scfg.knn} by id against "
         f"the exact oracle (256 queries): fused {recall[True]:.4f}, loop "
         f"{recall[False]:.4f}; blockmin launches {kb.launches}")
+
+
+def generic_phase(torch, kb, kp, u_dev, db, dev):
+    """Phase 3, second half: the generic instances where the fast ones do
+    not run: blockmin at blocks 16, 1024 and 2048 on the 1M corpus, and
+    both kernels at 64- and 256-bit codes. Returns the largest error and
+    the runs of blockmin at block 1024 (W = 4, beside the fast block 512)
+    and of pairwise at 64-bit codes (beside the fast 128-bit one), each
+    ``(err, ms, plain_ms)``."""
+    from verticut_tpu_torch import bits, codes
+    blocks = {b: blockmin_vs_twin(torch, kb, u_dev, db, b)
+              for b in (16, 1024, 2048)}
+    err = max(c[0] for c in blocks.values())
+    pw = {}
+    for bits_w, n in ((64, N_MAIN), (256, 262_144)):
+        q = bits.as_codes(codes.random_codes(6, Q, bits_w), dev)
+        d = bits.as_codes(codes.random_codes(5, n, bits_w), dev)
+        pw[bits_w] = kernel_vs_twin(
+            torch, f"pairwise Q={Q} N={N_PAIRWISE} W={bits_w // 32}",
+            kp.pairwise, kp.pairwise_reference, (q, d[:N_PAIRWISE]))
+        err = max(err, blockmin_vs_twin(torch, kb, q, d, 512)[0],
+                  pw[bits_w][0])
+        del q, d
+    torch.cuda.empty_cache()
+    return err, blocks[1024], pw[64]
+
+
+def dispatch_phase(torch, index, q_dev, scfg):
+    """Phase 8: two handles in flight, finalized out of order, equal to
+    mih_search on every row."""
+    from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
+                                           mih_search_finalize)
+    # a batch's order decides which rows its stage budgets spill to the
+    # scan tier, so the reversed batch has its own reference run
+    rev = q_dev.flip(0)
+    want, want_rev = mih_search(index, q_dev, scfg), mih_search(index, rev,
+                                                                scfg)
+    h1 = mih_search_dispatch(index, q_dev, scfg)
+    h2 = mih_search_dispatch(index, rev, scfg)
+    check(h1.event is not None and h1.host.is_pinned(),
+          "dispatch: no pinned host copy behind a CUDA event")
+    r2 = mih_search_finalize(h2)
+    r1 = mih_search_finalize(h1)
+    for f in want._fields:
+        check(torch.equal(getattr(r1, f), getattr(want, f)),
+              f"dispatch: {f} != mih_search")
+        check(torch.equal(getattr(r2, f), getattr(want_rev, f)),
+              f"dispatch (reversed batch, finalized first): {f} != "
+              "mih_search")
+    check(torch.equal(r2.dists, r1.dists.flip(0)),
+          "dispatch: the reversed batch's dists are not the batch's")
+    log(f"dispatch/finalize 1M k={scfg.knn}: two handles in flight, "
+        f"finalized out of order, equal to mih_search on all {len(q_dev)} "
+        f"rows; packed row {tuple(h1.packed.shape)}")
+
+
+def narrow_phase(torch, kb, dev, scfg):
+    """Phase 9: a 64-bit index under uniform queries: the whole batch
+    takes the scan tier, which runs the generic blockmin instance."""
+    from verticut_tpu_torch import bits, codes
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.index import build_index
+    cfg = MIHConfig(bits=64, n_tables=2)
+    packed = codes.clustered_codes(0, N_MAIN, 64, n_clusters=N_MAIN // 200,
+                                   flip_p=0.02)
+    index = build_index(packed, cfg, device=dev)
+    u = bits.as_codes(codes.random_codes(98, Q, 64), dev)
+    kb.launches = 0
+    launches, res = run_cell(torch, "1M 64-bit (m=2) uniform k=10", index, u,
+                             scfg, 256, kb)
+    check(launches > 0, "the 64-bit cell launched no blockmin kernel")
+    check(bool((res.radius == 1).all()),
+          "the 64-bit uniform cell did not resolve in the scan tier")
+    return launches
+
+
+def scale_phase(torch, kb, dev, k10, k100):
+    """Phase 11: bench.py's scale branch at the reference's default 100M
+    codes. Returns the phase's blockmin launches."""
+    from verticut_tpu_torch import bench, bits, codes
+    from verticut_tpu_torch.ops import topk
+    torch.cuda.reset_peak_memory_stats()
+    index, info = bench.make_index(N_SCALE, dev)
+    peak = torch.cuda.max_memory_allocated()
+    check(info["layout"] == "inline"
+          and all(t.entry_ids is None for t in index.tables),
+          "100M: expected inline rows without flat id columns")
+    index_bytes = sum(4 * (t.entry_rows.numel() + t.directory.se.numel())
+                      for t in index.tables)
+    log(f"build N={N_SCALE}: generated on the card in {info['gen_s']:.2f} s, "
+        f"built in {info['build_s']:.2f} s, pbits "
+        f"{index.tables[0].directory.pbits}; peak device memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated), index "
+        f"{index_bytes / 2**30:.2f} GiB + codes "
+        f"{index.codes.numel() * 4 / 2**30:.2f} GiB")
+    q = bench.perturbed_queries(np.random.default_rng(0), index.codes, Q)
+    u = bits.as_codes(codes.random_codes(99, Q, 128), dev)
+    merges = {"pos": 0, "packed": 0}
+    originals = (topk.merge_strips_dedup_pos, topk.merge_strips_packed)
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            merges[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    topk.merge_strips_dedup_pos = counted("pos", originals[0])
+    topk.merge_strips_packed = counted("packed", originals[1])
+    kb.launches = 0
+    out = {}
+    try:
+        for name, qs, scfg, n_batches, runs in (
+                ("100M k=10", q, k10, 12, 3), ("100M k=100", q, k100, 8, 1),
+                ("100M uniform k=10", u, k10, 8, 1)):
+            before = kb.launches
+            c = bench.cell(index, qs, scfg, n_batches, runs)
+            k = scfg.knn
+            check(c["handle"] is not None
+                  and tuple(c["handle"].packed.shape) == (Q, 2 * k + 3),
+                  f"{name}: the result row is not [Q, 2k + 3]")
+            check_result(torch, name, c["result"], index.codes, qs, k)
+            out[name] = c["result"]
+            log(f"cell {name}: first batch {c['warmup_s']:.4f} s, latency "
+                f"{', '.join(f'{t:.4f}' for t in c['latency_s'])} s, "
+                f"pipelined (depth 4, {n_batches} batches) "
+                f"{c['pipelined_batch_s']:.4f} s/batch, {c['qps']:.0f} "
+                f"queries/s; radius histogram "
+                f"{torch.bincount(c['result'].radius).tolist()}; blockmin "
+                f"launches {kb.launches - before}")
+    finally:
+        topk.merge_strips_dedup_pos, topk.merge_strips_packed = originals
+    check(merges["pos"] > 0 and merges["packed"] == 0,
+          f"100M: the radius steps' merges were {merges}, not all _pos")
+    t0 = time.perf_counter()
+    od, oi = oracle(q[:N_SCALE_ORACLE], index.codes, 100)
+    ud, ui = oracle(u[:N_SCALE_ORACLE], index.codes, 10)
+    oracle_s = time.perf_counter() - t0
+    for name, (d, i) in (("100M k=10", (od[:, :10], oi[:, :10])),
+                         ("100M k=100", (od, oi)),
+                         ("100M uniform k=10", (ud, ui))):
+        r = out[name]
+        check(torch.equal(r.dists[:N_SCALE_ORACLE], d)
+              and torch.equal(r.ids[:N_SCALE_ORACLE], i),
+              f"{name}: != the popcount oracle")
+    log(f"100M: all three cells equal the popcount oracle on "
+        f"{N_SCALE_ORACLE} queries, dists and ids ({oracle_s:.1f} s for "
+        f"two scans); radius steps merged by the _pos selections "
+        f"({merges['pos']} merges, 0 packed); blockmin launches "
+        f"{kb.launches}")
+    return kb.launches
 
 
 def main() -> int:
@@ -294,6 +442,8 @@ def main() -> int:
     from verticut_tpu_torch.kernels import _build
     from verticut_tpu_torch.kernels import blockmin as kb
     from verticut_tpu_torch.kernels import pairwise as kp
+    from verticut_tpu_torch.bench import perturbed_queries
+    from verticut_tpu_torch.oracle_drive import run_cells
 
     # 1. environment
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -319,9 +469,8 @@ def main() -> int:
     # 3. kernels vs twins at the paths' shapes
     packed = codes.clustered_codes(0, N_MAIN, 128, n_clusters=N_MAIN // 200,
                                    flip_p=0.02)
-    queries = bench_queries(packed, Q)
     db = bits.as_codes(packed, dev)
-    q_dev = bits.as_codes(queries, dev)
+    q_dev = perturbed_queries(np.random.default_rng(0), db, Q)
     u_dev = bits.as_codes(codes.random_codes(99, Q, 128), dev)
     cmp = {b: blockmin_vs_twin(torch, kb, u_dev, db, b) for b in (512, 128)}
     max_err = {"blockmin": max(c[0] for c in cmp.values())}
@@ -332,7 +481,8 @@ def main() -> int:
     pw = kernel_vs_twin(torch, f"pairwise Q={Q} N={N_PAIRWISE}", kp.pairwise,
                         kp.pairwise_reference, (u_dev, db[:N_PAIRWISE]))
     max_err["pairwise"] = pw[0]
-    torch.cuda.empty_cache()
+    err, gen_bm, gen_pw = generic_phase(torch, kb, kp, u_dev, db, dev)
+    max_err = {k: max(v, err) for k, v in max_err.items()}
 
     # 4. the main path, counted
     cfg = MIHConfig(bits=128, n_tables=4)
@@ -346,51 +496,58 @@ def main() -> int:
         f"{index.tables[0].directory.pbits}")
     run_cell(torch, "1M k=10", index, q_dev, k10, 256, kb)
     run_cell(torch, "1M k=100", index, q_dev, k100, 256, kb)
-    uniform = run_cell(torch, "1M uniform k=10", index, u_dev, k10, 256, kb)
+    uniform, _ = run_cell(torch, "1M uniform k=10", index, u_dev, k10, 256,
+                          kb)
     main_launches = kb.launches
     check(uniform > 0, "the uniform cell launched no blockmin kernel")
     check(main_launches > 0, "the main path launched no blockmin kernel")
 
-    # 5.-7. the linear-scan methods, the loop driver, approximate mode
+    # 5.-8. the linear-scan methods, the loop driver, approximate mode,
+    # dispatch / finalize
     linear = linear_phase(torch, kb, kp, index.codes, u_dev)
     loop_phase(torch, kb, index, q_dev, u_dev, k10)
     approx_phase(torch, kb, index, q_dev, k10)
+    dispatch_phase(torch, index, q_dev, k10)
     del index, q_dev, u_dev, db
     torch.cuda.empty_cache()
 
-    # 8. scale
+    # 9. a 64-bit index: the generic instance on the scan tier
+    narrow_phase(torch, kb, dev, k10)
+    torch.cuda.empty_cache()
+
+    # 10. the oracle drive at wide k
     t0 = time.perf_counter()
-    big = codes.clustered_codes(0, N_SCALE, 128, n_clusters=N_SCALE // 200,
-                                flip_p=0.02)
-    log(f"generated N={N_SCALE} on the host in {time.perf_counter() - t0:.1f} s")
-    bq = bits.as_codes(bench_queries(big, Q), dev)
-    bu = bits.as_codes(codes.random_codes(99, Q, 128), dev)
-    db = bits.as_codes(big, dev)
-    for b in (512, 128):
-        max_err["blockmin"] = max(max_err["blockmin"],
-                                  blockmin_vs_twin(torch, kb, bu, db, b)[0])
-    del db, bu
-    t0 = time.perf_counter()
-    index = build_index(big, cfg, device=dev)
-    torch.cuda.synchronize()
-    log(f"build N={N_SCALE}: {time.perf_counter() - t0:.3f} s, pbits "
-        f"{index.tables[0].directory.pbits}")
-    run_cell(torch, "10M k=10", index, bq, k10, 64, kb)
+    for c in run_cells(N_MAIN, 1024, (500, 1000), dev):
+        check(c["ok"], f"oracle drive: {c}")
+    log(f"oracle drive N={N_MAIN} k=500,1000 (clustered and uniform): all "
+        f"cells equal the oracle in dists and ids "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # 11. scale
+    scale_launches = scale_phase(torch, kb, dev, k10, k100)
+    check(scale_launches > 0, "the 100M phase launched no blockmin kernel")
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     print(json.dumps({"kernels": [
         {"name": "blockmin", "route": "cuda",
          "source": "verticut_tpu_torch/csrc/blockmin.cu",
          "replaces": f"{src}:106,295,346",
-         "launches": main_launches, "max_abs_err": max_err["blockmin"],
+         "launches": main_launches, "scale_launches": scale_launches,
+         "max_abs_err": max_err["blockmin"],
          "ms": cmp[512][1], "plain_ms": cmp[512][2],
-         "shape": f"Q={Q} N={N_MAIN} block=512"},
+         "shape": f"Q={Q} N={N_MAIN} W=4 block=512",
+         "generic_ms": gen_bm[1], "generic_plain_ms": gen_bm[2],
+         "generic_shape": f"Q={Q} N={N_MAIN} W=4 block=1024"},
         {"name": "pairwise", "route": "cuda",
          "source": "verticut_tpu_torch/csrc/pairwise.cu",
          "replaces": f"{src}:419",
          "launches": linear["pairwise"], "max_abs_err": max_err["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
-         "shape": f"Q={Q} N={N_PAIRWISE}"}]}), flush=True)
+         "shape": f"Q={Q} N={N_PAIRWISE} W=4",
+         "generic_ms": gen_pw[1], "generic_plain_ms": gen_pw[2],
+         "generic_shape": f"Q={Q} N={N_PAIRWISE} W=2"}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

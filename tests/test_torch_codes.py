@@ -91,3 +91,50 @@ def test_unpack_bits_pm1_matches():
     dot = got @ got.T
     ham = tcodes.pairwise_hamming(bits.as_codes(c), bits.as_codes(c))
     assert torch.equal(dot.to(torch.int32), 128 - 2 * ham)
+
+
+def test_clustered_codes_device_is_deterministic():
+    """Shape and dtype; the same codes for the same seed, other codes for
+    another seed. (jax.random draws other numbers than a torch.Generator,
+    so the JAX generator is matched in distribution, not in bits.)"""
+    a = tcodes.clustered_codes_device(3, 5000, 128, n_clusters=20,
+                                      device="cpu")
+    assert a.shape == (5000, 4) and a.dtype == torch.int32
+    assert torch.equal(a, tcodes.clustered_codes_device(
+        3, 5000, 128, n_clusters=20, device="cpu"))
+    assert not torch.equal(a, tcodes.clustered_codes_device(
+        4, 5000, 128, n_clusters=20, device="cpu"))
+    assert tcodes.clustered_codes_device(0, 7, 64, device="cpu").shape == (7,
+                                                                            2)
+
+
+def test_clustered_codes_device_chunks(monkeypatch):
+    """N not a multiple of the chunk: every row generated, each chunk
+    drawing on from the same generator."""
+    monkeypatch.setattr(tcodes, "DEVICE_GEN_CHUNK", 1000)
+    a = tcodes.clustered_codes_device(5, 3500, 256, n_clusters=3,
+                                      flip_p=0.25, device="cpu")
+    assert a.shape == (3500, 8)
+    # rows of one cluster differ in about 2 * 0.25 * 0.75 of their bits;
+    # a row left unwritten or copied would show as a duplicate
+    assert torch.unique(a, dim=0).shape[0] == 3500
+
+
+@pytest.mark.parametrize("flip_p,bits_w", [(0.02, 128), (0.05, 64),
+                                           (0.3, 256)])
+def test_clustered_codes_device_flip_rate(flip_p, bits_w):
+    """One cluster: each bit differs from the center (the bitwise majority
+    code, for flip rates under one half) with probability
+    round(flip_p * 256) / 256; the mean share of differing bits lies within
+    4 sigma of it, as does the JAX generator's."""
+    n = 20_000
+    p = round(flip_p * 256) / 256
+    sigma = (p * (1 - p) / (n * bits_w)) ** 0.5
+    for c in (bits.to_u32(tcodes.clustered_codes_device(
+                  11, n, bits_w, n_clusters=1, flip_p=flip_p, device="cpu")),
+              np.asarray(jcodes.clustered_codes_device(11, n, bits_w,
+                                                       n_clusters=1,
+                                                       flip_p=flip_p))):
+        b = np.unpackbits(c.view(np.uint8), axis=1)
+        center = b.mean(0) > 0.5
+        assert abs((b != center).mean() - p) < 4 * sigma

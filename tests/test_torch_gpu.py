@@ -18,7 +18,9 @@ from verticut_tpu_torch.config import MIHConfig, SearchConfig
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.kernels import blockmin as kb
 from verticut_tpu_torch.kernels import pairwise as kp
-from verticut_tpu_torch.search import linear_search, mih_search
+from verticut_tpu_torch.search import (linear_search, mih_search,
+                                       mih_search_dispatch,
+                                       mih_search_finalize)
 from verticut_tpu_torch.search.linear import METHODS
 
 pytestmark = pytest.mark.gpu
@@ -31,16 +33,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _codes(rng, n, w):
+    return bits.as_codes(rng.integers(0, 1 << 32, (n, w), dtype=np.uint32))
+
+
 @pytest.mark.parametrize("nq,n_rows,n", [(70, 5000, 4711), (129, 40000, 39999),
                                          (300, 1000, 0), (8192, 100000, 99999)])
 def test_kernel_matches_twin(cuda_device, nq, n_rows, n):
+    """The fast instance at each of its blocks."""
     rng = np.random.default_rng(nq)
-    q = bits.as_codes(rng.integers(0, 1 << 32, (nq, 4), dtype=np.uint32))
-    db = bits.as_codes(rng.integers(0, 1 << 32, (n_rows, 4),
-                                    dtype=np.uint32))
+    q, db = _codes(rng, nq, 4), _codes(rng, n_rows, 4)
     db[5] = q[0]
     q, db = q.to(cuda_device), db.to(cuda_device)
-    for block in kb.KERNEL_BLOCKS:
+    for block in kb.FAST_BLOCKS:
         before = kb.launches
         got = kb.blockmin(q, db, n, block)
         torch.cuda.synchronize()
@@ -48,20 +53,47 @@ def test_kernel_matches_twin(cuda_device, nq, n_rows, n):
         assert torch.equal(got, kb.blockmin_reference(q, db, n, block))
 
 
-def test_unsupported_blocks_raise_on_the_card(cuda_device):
-    q = torch.zeros((3, 4), dtype=torch.int32, device=cuda_device)
-    for block in (16, 1024, 2048):
-        with pytest.raises(ValueError, match="block"):
-            kb.blockmin(q, q, 3, block)
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("block", [1, 16, 96, 1024, 2048])
+def test_generic_blockmin_matches_twin(cuda_device, w, block):
+    """Every code width and block the fast instance does not take: the
+    generic instance, with a straddling last block and rows past n."""
+    rng = np.random.default_rng(w * 10_000 + block)
+    n_rows = 3 * max(block, 700) + 5
+    n = n_rows - max(1, block // 3) - 2
+    q, db = _codes(rng, 77, w), _codes(rng, n_rows, w)
+    db[n - 1] = q[0]
+    db[n] = q[1]                                # past n: excluded
+    q, db = q.to(cuda_device), db.to(cuda_device)
+    before = kb.launches
+    got = kb.blockmin(q, db, n, block)
+    torch.cuda.synchronize()
+    assert kb.launches == before + 1
+    assert torch.equal(got, kb.blockmin_reference(q, db, n, block))
+    assert int(got[0, (n - 1) // block]) == 0
 
 
 @pytest.mark.parametrize("nq,n", [(1, 1), (70, 5001), (300, 1025),
                                   (1000, 131073)])
 def test_pairwise_kernel_matches_twin(cuda_device, nq, n):
+    """The fast instance (128-bit codes) at tile-edge shapes."""
     rng = np.random.default_rng(nq + n)
-    q = bits.as_codes(rng.integers(0, 1 << 32, (nq, 4), dtype=np.uint32))
-    db = bits.as_codes(rng.integers(0, 1 << 32, (n, 4), dtype=np.uint32))
+    q, db = _codes(rng, nq, 4), _codes(rng, n, 4)
     db[n // 2] = q[0]
+    q, db = q.to(cuda_device), db.to(cuda_device)
+    before = kp.launches
+    got = kp.pairwise(q, db)
+    torch.cuda.synchronize()
+    assert kp.launches == before + 1
+    assert torch.equal(got, kp.pairwise_reference(q, db))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+def test_generic_pairwise_matches_twin(cuda_device, w):
+    """Every code width but the fast instance's: the generic instance."""
+    rng = np.random.default_rng(w)
+    q, db = _codes(rng, 130, w), _codes(rng, 70_001, w)
+    db[11] = q[3]
     q, db = q.to(cuda_device), db.to(cuda_device)
     before = kp.launches
     got = kp.pairwise(q, db)
@@ -81,7 +113,7 @@ def test_mih_search_on_card_matches_oracle(cuda_device, uniform, fused):
     before = kb.launches
     res = mih_search(index, q, SearchConfig(knn=10, fused=fused))
     od, oi = linear_search(q, index.codes, 10, method="popcount")
-    assert torch.equal(res.dists, od) and torch.equal(res.ids, oi)
+    assert torch.equal(res.dists, od.cpu()) and torch.equal(res.ids, oi.cpu())
     if uniform:              # the scan tier or the fallback ran the kernel
         assert kb.launches > before
 
@@ -96,8 +128,29 @@ def test_approximate_drivers_agree_on_card(cuda_device):
     b = mih_search(index, q, SearchConfig(knn=10, approximate=True,
                                           fused=False))
     assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
-    true_d = codes.hamming_distance(index.codes[a.ids.long()], q[:, None])
-    assert torch.equal(true_d, a.dists)
+    true_d = codes.hamming_distance(index.codes[a.ids.long().cuda()],
+                                    q[:, None])
+    assert torch.equal(true_d.cpu(), a.dists)
+
+
+def test_dispatch_copies_to_pinned_memory_behind_an_event(cuda_device):
+    """dispatch leaves the packed row on the card, its copy in pinned host
+    memory and an event behind the copy; finalize equals mih_search."""
+    packed = codes.clustered_codes(4, 100_000, 128, n_clusters=500,
+                                   flip_p=0.02)
+    index = build_index(packed, MIHConfig(), device=cuda_device)
+    q = bits.as_codes(packed[:300] ^ np.uint32(9), cuda_device)
+    scfg = SearchConfig(knn=10)
+    h = mih_search_dispatch(index, q, scfg)
+    assert h.packed.is_cuda and h.packed.shape == (300, 13)
+    assert not h.host.is_cuda and h.host.is_pinned()
+    assert isinstance(h.event, torch.cuda.Event)
+    got = mih_search_finalize(h)
+    assert h.event.query()
+    assert torch.equal(h.host, h.packed.cpu())
+    want = mih_search(index, q, scfg)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("method", METHODS)

@@ -8,24 +8,34 @@ from verticut_tpu import codes as jcodes
 from verticut_tpu.config import MIHConfig
 from verticut_tpu.index import build_index as jax_build_index
 from verticut_tpu.index.build_native import build_index_native
+from verticut_tpu.index.mih import load_index as jax_load_index
 from verticut_tpu.index.mih import save_index
+from verticut_tpu.search import linear_search as jax_linear_search
+from verticut_tpu.search import mih_search as jax_mih_search
 from verticut_tpu_torch import bits
-from verticut_tpu_torch.index import build_index, index_from_arrays
+from verticut_tpu_torch.index import (build_index, index_from_arrays,
+                                      load_index)
+from verticut_tpu_torch.index import save_index as port_save_index
 from verticut_tpu_torch.search import mih_search
 from verticut_tpu_torch.config import SearchConfig
 
 
 def _assert_same(port, ref):
+    """Every array of the two indexes equal, None where the other is."""
     assert port.n == ref.n
+    assert (port.cfg.bits, port.cfg.n_tables) == (ref.cfg.bits,
+                                                  ref.cfg.n_tables)
     assert np.array_equal(bits.to_u32(port.codes), np.asarray(ref.codes))
     for tp, tr in zip(port.tables, ref.tables, strict=True):
         assert tp.directory.pbits == tr.directory.pbits
         assert np.array_equal(tp.directory.se.numpy(),
                               np.asarray(tr.directory.se))
-        assert np.array_equal(bits.to_u32(tp.entry_rows),
-                              np.asarray(tr.entry_rows))
-        assert np.array_equal(tp.entry_ids.numpy(),
-                              np.asarray(tr.entry_ids))
+        for f in ("entry_rows", "entry_idrows", "entry_ids"):
+            a, b = getattr(tp, f), getattr(tr, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert np.array_equal(bits.to_u32(a),
+                                      np.asarray(b).view(np.uint32)), f
 
 
 @pytest.mark.parametrize("n", [1000, 200_000])
@@ -56,6 +66,68 @@ def test_index_from_saved_jax_index(tmp_path):
         assert np.array_equal(getattr(a, f).numpy(), getattr(b, f).numpy()), f
 
 
+@pytest.mark.parametrize("store_codes,keep_ids", [(True, False),
+                                                 (False, True),
+                                                 (False, False)])
+def test_build_options_match_jax(store_codes, keep_ids):
+    """The compact layout (id-only rows) and the builds without the flat
+    id column, array for array; then a search of each, equal to JAX's
+    (the compact branch of the candidate fetch) and to brute force."""
+    packed = jcodes.clustered_codes(21, 3000, 128, n_clusters=12, flip_p=0.03)
+    cfg = MIHConfig(bits=128, n_tables=4)
+    port = build_index(packed, cfg, device="cpu", store_codes=store_codes,
+                       keep_entry_ids=keep_ids)
+    ref = jax_build_index(packed, cfg, directory="range",
+                          store_codes=store_codes, keep_entry_ids=keep_ids)
+    _assert_same(port, ref)
+    q = packed[:64]
+    for scfg in (SearchConfig(knn=10),
+                 SearchConfig(fused=False, knn=5, max_enum_radius=3,
+                              candidate_cap=1024, fallback_ratio=1e9)):
+        got = mih_search(port, q, scfg)
+        want = jax_mih_search(ref, q, scfg)
+        for f in got._fields:
+            assert np.array_equal(getattr(got, f).numpy(),
+                                  np.asarray(getattr(want, f))), f
+        od, oi = jax_linear_search(q, packed, scfg.knn, method="popcount")
+        assert np.array_equal(got.dists.numpy(), np.asarray(od))
+        assert np.array_equal(got.ids.numpy(), np.asarray(oi))
+
+
+@pytest.mark.parametrize("store_codes,keep_ids", [(True, True),
+                                                 (True, False),
+                                                 (False, False)])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_save_load_across_packages(tmp_path, writer, store_codes, keep_ids):
+    """A file written by either package loads in the other: same arrays,
+    and the same search answers from the loaded index as from the one
+    built in memory."""
+    packed = jcodes.random_codes(11, 1500, 128)
+    cfg = MIHConfig(bits=128, n_tables=4)
+    port = build_index(packed, cfg, device="cpu", store_codes=store_codes,
+                       keep_entry_ids=keep_ids)
+    ref = jax_build_index(packed, cfg, directory="range",
+                          store_codes=store_codes, keep_entry_ids=keep_ids)
+    path = str(tmp_path / "idx.npz")
+    if writer == "port":
+        port_save_index(path, port)
+        port2, ref2 = load_index(path, device="cpu"), jax_load_index(path)
+    else:
+        save_index(path, ref)
+        port2, ref2 = load_index(path), jax_load_index(path)
+    _assert_same(port2, ref)
+    _assert_same(port, ref2)
+    q = packed[:32] ^ np.uint32(5)
+    scfg = SearchConfig(knn=5)
+    a, b = mih_search(port2, q, scfg), jax_mih_search(ref2, q, scfg)
+    c = mih_search(port, q, scfg)
+    for f in a._fields:
+        assert np.array_equal(getattr(a, f).numpy(),
+                              np.asarray(getattr(b, f))), f
+        assert np.array_equal(getattr(a, f).numpy(),
+                              getattr(c, f).numpy()), f
+
+
 def test_unported_layouts_raise():
     packed = jcodes.random_codes(7, 100, 128)
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -66,3 +138,11 @@ def test_unported_layouts_raise():
         index_from_arrays(arrays, device="cpu")
     with pytest.raises(ValueError):
         build_index(packed[:, :2], MIHConfig(), device="cpu")
+    # a legacy bucket table (dense offsets) in a saved file
+    ref = jax_build_index(packed[:, :2], MIHConfig(bits=64, n_tables=4),
+                          directory="dense")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        index_from_arrays({"n": np.asarray(100), "bits": np.asarray(64),
+                           "n_tables": np.asarray(4),
+                           "t0_offsets": np.asarray(
+                               ref.tables[0].directory.offsets)})

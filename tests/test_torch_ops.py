@@ -186,3 +186,93 @@ def test_chunk_topk_affine_and_merge_match(t, k):
                        axis=-1)[:, :min(k, 2 * t)]
     want = _scan_keys(np.take_along_axis(both, order, -1), order)
     assert np.array_equal(pool.numpy(), want)
+
+
+def _wide_cands(rng, q, c, max_id, base=0):
+    """The JAX package's _pos-test candidates (``tests/test_ops.py``): ids
+    unique per row (the per-table invariant), a distance that is a
+    function of the id (many ties), ids up to ``base + max_id``."""
+    cid = np.full((q, c), -1, np.int64)
+    for i in range(q):
+        k = rng.integers(0, c + 1)
+        cid[i, :k] = rng.choice(max_id, size=k, replace=False) + base
+    cdist = np.where(cid >= 0, (cid * 13 + 5) % 120, 0x7FFFFFFF)
+    return cdist.astype(np.int32), cid.astype(np.int32)
+
+
+def _by_dist_id(d, i, p):
+    """Brute-force top-``p`` per row by (dist, id), padded with (INF, -1)."""
+    out_d = np.full((d.shape[0], p), 0x7FFFFFFF, np.int32)
+    out_i = np.full((d.shape[0], p), -1, np.int32)
+    for r in range(d.shape[0]):
+        ok = i[r] >= 0
+        order = np.lexsort((i[r][ok], d[r][ok]))[:p]
+        out_d[r, :len(order)] = d[r][ok][order]
+        out_i[r, :len(order)] = i[r][ok][order]
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("q,blk,chb,p,max_id,base", [
+    (6, 32, 20, 7, 100_000, 0),                  # test_chunkmin_strip_...
+    (5, 32, 24, 9, 90_000_000, (1 << 25) + 7),   # test_chunkmin_pos_huge_ids
+    (4, 25, 8, 4, 3000, 0),                      # the fallback (4p*blk > C)
+    (6, 25, 44, 10, (1 << 30) - 9, (1 << 30) - 1),  # ids up to 2^31 - 1
+])
+def test_pos_selections_match_jax(q, blk, chb, p, max_id, base):
+    """table_topk_pos and table_topk_chunkmin_pos: equal to each other and
+    to brute force by (dist, id), and to the JAX selections in every
+    distance. The JAX ones order a strip by (dist, slot) and keep a
+    table's first slots at an equal distance (ROADMAP.md Queue 3), so
+    their ids may differ at the kth-distance ties; on rows without such a
+    tie they hold the same ids, which sort by (dist, id) to the port's."""
+    rng = np.random.default_rng(blk * chb + p)
+    d, i = _wide_cands(rng, q, blk * chb, max_id, base)
+    d[0, 3 * blk:3 * blk + p] = 0            # all winners in one chunk
+    i[0, 3 * blk:3 * blk + p] = np.arange(p) + base + max_id
+    want_d, want_i = _by_dist_id(d, i, p)
+    jd, ji = jtopk.table_topk_pos(jnp.asarray(d), jnp.asarray(i), p)
+    jcd, jci = jtopk.table_topk_chunkmin_pos(jnp.asarray(d), jnp.asarray(i),
+                                             p, blk)
+    for got in (ttopk.table_topk_pos(_t(d), _t(i), p),
+                ttopk.table_topk_chunkmin_pos(_t(d), _t(i), p, blk)):
+        assert np.array_equal(got[0].numpy(), want_d)
+        assert np.array_equal(got[1].numpy(), want_i)
+        kth = want_d[:, -1:]
+        untied = ((d == kth) & (i >= 0)).sum(-1) <= (want_d == kth).sum(-1)
+        for jdd, jii in ((jd, ji), (jcd, jci)):
+            assert np.array_equal(got[0].numpy(), np.asarray(jdd))
+            jd_s, ji_s = _by_dist_id(np.asarray(jdd), np.asarray(jii), p)
+            assert np.array_equal(got[1].numpy()[untied], ji_s[untied])
+
+
+@pytest.mark.parametrize("p,base", [(7, 0), (7, (1 << 25) + 12345),
+                                    (60, 0), (10, (1 << 31) - 300)])
+def test_merge_strips_dedup_pos_matches_jax(p, base):
+    """Three rounds of the wide-id merge over three tables' strips that
+    share ids: bit-equal to the JAX merge given the same strips, and equal
+    to brute force by (dist, id) over every candidate seen."""
+    rng = np.random.default_rng(p + base % 97)
+    q, n_tables, c, max_id = 6, 3, 40, 250
+    pd, pi = ttopk.empty_pool(q, p)
+    seen = [dict() for _ in range(q)]
+    for _ in range(3):
+        strips = []
+        for _t_ in range(n_tables):
+            d, i = _wide_cands(rng, q, c, max_id, base)
+            for r in range(q):
+                seen[r].update({int(a): int(b) for a, b in zip(i[r], d[r])
+                                if a >= 0})
+            strips.append(ttopk.table_topk_pos(_t(d), _t(i), p))
+        sd = torch.cat([s_[0] for s_ in strips], -1)
+        si = torch.cat([s_[1] for s_ in strips], -1)
+        want = jtopk.merge_strips_dedup_pos(
+            jnp.asarray(pd.numpy()), jnp.asarray(pi.numpy()),
+            jnp.asarray(sd.numpy()), jnp.asarray(si.numpy()))
+        pd, pi = ttopk.merge_strips_dedup_pos(pd, pi, sd, si)
+        assert np.array_equal(pd.numpy(), np.asarray(want[0]))
+        assert np.array_equal(pi.numpy(), np.asarray(want[1]))
+    for r in range(q):
+        best = sorted(seen[r].items(), key=lambda kv: (kv[1], kv[0]))[:p]
+        assert [(int(a), int(b)) for a, b in zip(pi[r], pd[r])
+                ][:len(best)] == best
+        assert (pi[r, len(best):] == -1).all()

@@ -16,6 +16,7 @@ from verticut_tpu.config import MIHConfig, SearchConfig
 from verticut_tpu.index import build_index as jax_build_index
 from verticut_tpu.search import linear_search as jax_linear_search
 from verticut_tpu.search import mih_search as jax_mih_search
+from verticut_tpu.search import mih_search_dispatch as jax_dispatch
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
                                        mih_search_finalize)
@@ -191,25 +192,179 @@ def test_empty_fused_schedule_runs_the_loop_driver(monkeypatch):
 
 
 def test_unported_options_raise():
+    """What still raises: a bitmap request on the range engine, queries of
+    another width, the legacy bucket directories (ROADMAP.md Queue 1 item
+    8), and a compact layout without its codes."""
     packed = jcodes.random_codes(3, 500, 128)
     index = build_index(packed, CFG, device="cpu")
     q = packed[:4]
-    for kw in ({"overflow_to_scan": True},
-               {"overflow_to_scan": True, "fused": False}):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            mih_search(index, q, SearchConfig(**kw))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        mih_search_dispatch(index, q)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        mih_search_finalize(None)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="use_bitmap"):
         mih_search(index, q, SearchConfig(use_bitmap=True))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="use_bitmap"):
+        mih_search_dispatch(index, q, SearchConfig(use_bitmap=True))
+    with pytest.raises(ValueError, match="code width"):
         mih_search(index, q[:, :2], SearchConfig())
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_index(packed, CFG, device="cpu", directory="hash")
+    with pytest.raises(ValueError, match="compact"):
+        build_index(packed, CFG, device="cpu", store_codes=False,
+                    keep_codes=False)
     # past the crossover an approximate request runs the exact engine
     r = mih_search(index, q, SearchConfig(knn=60, approximate=True))
     e = mih_search(index, q, SearchConfig(knn=60))
     assert np.array_equal(r.dists.numpy(), e.dists.numpy())
+    # the fused driver declines a loop request and an empty schedule
+    assert mih_search_dispatch(index, q, SearchConfig(fused=False)) is None
+    assert mih_search_dispatch(index, q,
+                               SearchConfig(fused_max_masks=0)) is None
+
+
+@pytest.mark.parametrize("bits_w,n_tables", [(64, 2), (256, 8)])
+def test_code_widths_match_jax(bits_w, n_tables):
+    """64- and 256-bit codes under uniform queries: stage 0, then the scan
+    tier for the whole batch (the kernels' generic instances on a card).
+    At 256 bits both packages take the wide-id selections at any n."""
+    packed = jcodes.clustered_codes(1, 20_000, bits_w, n_clusters=100,
+                                    flip_p=0.02)
+    cfg = MIHConfig(bits=bits_w, n_tables=n_tables)
+    q = jcodes.random_codes(5, 1024, bits_w)
+    got, _ = _assert_parity(build_index(packed, cfg, device="cpu"),
+                            jax_build_index(packed, cfg, directory="range"),
+                            q, SearchConfig(knn=10))
+    assert (got.radius == 1).all()
+
+
+def _widen(index, n_entries, zeros):
+    """Give every table one flat id column of ``n_entries`` entries: the
+    drivers then size ids past 2^24 (the range engine reads its ids from
+    the entry rows, so the answers do not change)."""
+    index.tables = [t._replace(entry_ids=zeros(n_entries))
+                    for t in index.tables]
+    return index
+
+
+WIDE = 2 ** 24 + 2
+
+
+@pytest.fixture(scope="module")
+def wide(clustered):
+    """The 200k corpus in both packages with ids sized past 2^24."""
+    import jax.numpy as jnp
+    import torch
+    packed, _, _ = clustered
+    return (packed,
+            _widen(build_index(packed, CFG, device="cpu"), WIDE,
+                   lambda n: torch.zeros(n, dtype=torch.int32)),
+            _widen(jax_build_index(packed, CFG, directory="range"), WIDE,
+                   lambda n: jnp.zeros(n, jnp.int32)))
+
+
+@pytest.mark.parametrize("nq,k", [(64, 10), (64, 100), (2048, 10)])
+def test_wide_ids_match_jax_and_the_packed_branch(clustered, wide, nq, k):
+    """Past 2^24 ids every radius step takes the _pos selections and the
+    result row the [Q, 2k + 3] layout, in both packages. The port equals
+    its packed-branch run (itself equal to the JAX packed run, above) in
+    dists, ids and the four stats, and the JAX wide run in dists and the
+    four stats. The JAX wide run keeps a table's first slots at an equal
+    distance, not its smallest ids (ROADMAP.md Queue 3), so its ids may
+    differ at the kth-distance ties; the port's equal brute force."""
+    packed, port_packed, _ = clustered
+    _, port_wide, jax_wide = wide
+    q = _perturbed(packed, nq, seed=nq + k)
+    scfg = SearchConfig(knn=k, candidate_cap=8192, max_enum_radius=5)
+    assert mih_search_dispatch(port_wide, q, scfg).packed.shape == (
+        nq, 2 * k + 3)
+    got = mih_search(port_wide, q, scfg)
+    base = mih_search(port_packed, q, scfg)
+    want = jax_mih_search(jax_wide, q, scfg)
+    for f in FIELDS:
+        assert np.array_equal(getattr(got, f).numpy(),
+                              getattr(base, f).numpy()), f
+        if f != "ids":
+            assert np.array_equal(getattr(got, f).numpy(),
+                                  np.asarray(getattr(want, f))), f
+    od, oi = jax_linear_search(q[:64], packed, k, method="popcount")
+    assert np.array_equal(got.ids[:64].numpy(), np.asarray(oi))
+
+
+@pytest.mark.parametrize("wide_ids", [False, True])
+def test_dispatch_row_matches_jax(wide_ids):
+    """The packed result row itself, bit for bit: [Q, k + 3] packed pairs,
+    or [Q, 2k + 3] past 2^24 ids. Uniform queries against a uniform corpus
+    resolve in the exact scan tier, where both packages order ties by id."""
+    import jax.numpy as jnp
+    import torch
+    packed = jcodes.random_codes(8, 20_000, 128)
+    port = build_index(packed, CFG, device="cpu")
+    ref = jax_build_index(packed, CFG, directory="range")
+    if wide_ids:
+        _widen(port, WIDE, lambda n: torch.zeros(n, dtype=torch.int32))
+        _widen(ref, WIDE, lambda n: jnp.zeros(n, jnp.int32))
+    q = np.concatenate([packed[:40] ^ np.uint32(6),
+                        jcodes.random_codes(9, 40, 128)])
+    for k in (7, 30):
+        scfg = SearchConfig(knn=k)
+        h = mih_search_dispatch(port, q, scfg)
+        jh = jax_dispatch(ref, q, scfg)
+        assert h.event is None and h.host is h.packed
+        want = np.asarray(jh.packed)
+        assert h.packed.shape == (80, 2 * k + 3 if wide_ids else k + 3)
+        assert np.array_equal(h.packed.numpy().view(want.dtype), want)
+
+
+def test_dispatch_finalize_out_of_order_matches_jax():
+    """The JAX package's pipelining test: two handles in flight, finalized
+    out of order, each equal to the synchronous search and to JAX."""
+    rng = np.random.default_rng(42)
+    packed = jcodes.pack_bytes(
+        rng.integers(0, 256, size=(2000, 16), dtype=np.uint8))
+    index = build_index(packed, CFG, device="cpu")
+    q = packed[:64]
+    scfg = SearchConfig(knn=7)
+    sync = mih_search(index, q, scfg)
+    h1 = mih_search_dispatch(index, q, scfg)
+    h2 = mih_search_dispatch(index, q[::-1].copy(), scfg)
+    r2 = mih_search_finalize(h2)
+    r1 = mih_search_finalize(h1)
+    want = jax_mih_search(jax_build_index(packed, CFG, directory="range"),
+                          q, scfg)
+    for f in FIELDS:
+        assert np.array_equal(getattr(r1, f).numpy(),
+                              getattr(sync, f).numpy()), f
+        assert np.array_equal(getattr(r2, f).numpy(),
+                              getattr(sync, f).numpy()[::-1]), f
+        assert np.array_equal(getattr(r1, f).numpy(),
+                              np.asarray(getattr(want, f))), f
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_overflow_to_scan_matches_jax(monkeypatch, fused):
+    """The JAX package's merged-ladder test: tiny caps overflow nearly
+    every query; with overflow_to_scan the fused driver sends them to the
+    scan ladder instead of the retry ladder (the loop driver has no scan
+    ladder and ignores the flag). Equal to JAX and to brute force."""
+    rng = np.random.default_rng(8)
+    n, nq, k = 6_000, 64, 10
+    raw = rng.integers(0, 4, (n, 16), dtype=np.uint8) * 64
+    packed = jcodes.pack_bytes(raw)
+    scfg = SearchConfig(knn=k, candidate_cap=256, overflow_to_scan=True,
+                        fused=fused)
+    states = []
+    init_state = single.init_state
+
+    def count_states(n_queries, *a, **kw):
+        states.append(n_queries)
+        return init_state(n_queries, *a, **kw)
+
+    monkeypatch.setattr(single, "init_state", count_states)
+    got, _ = _assert_parity(build_index(packed, CFG, device="cpu"),
+                            jax_build_index(packed, CFG, directory="range"),
+                            packed[:nq], scfg)
+    od, oi = jax_linear_search(packed[:nq], packed, k, method="popcount")
+    assert np.array_equal(got.dists.numpy(), np.asarray(od))
+    assert np.array_equal(got.ids.numpy(), np.asarray(oi))
+    if fused:        # one state for the batch, none for a retry ladder
+        assert states == [nq]
 
 
 def test_port_imports_no_jax():
@@ -219,7 +374,9 @@ def test_port_imports_no_jax():
         "import verticut_tpu_torch, verticut_tpu_torch.index, "
         "verticut_tpu_torch.search, verticut_tpu_torch.ops.hamming, "
         "verticut_tpu_torch.kernels.blockmin, "
-        "verticut_tpu_torch.kernels.pairwise\n"
+        "verticut_tpu_torch.kernels.pairwise, verticut_tpu_torch.bench, "
+        "verticut_tpu_torch.oracle_drive, "
+        "verticut_tpu_torch.index.integrity\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'verticut_tpu')]\n"
         "assert not bad, bad\n")

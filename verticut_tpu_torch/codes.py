@@ -1,10 +1,11 @@
-"""Packed binary codes: host generation and device bit manipulation.
+"""Packed binary codes: generation and device bit manipulation.
 
 A B-bit code is ``B // 32`` words, word ``w`` holding bytes ``4w..4w+3``
 little-endian, exactly as in ``verticut_tpu/codes.py``. Host arrays are
 numpy ``uint32`` (byte-identical to the JAX package's generators); device
 code is torch ``int32`` tensors holding the same bit patterns
-(:mod:`verticut_tpu_torch.bits`).
+(:mod:`verticut_tpu_torch.bits`). :func:`clustered_codes_device` makes a
+corpus on the device itself, as the reference does at 100M codes.
 """
 
 from __future__ import annotations
@@ -72,6 +73,50 @@ def clustered_codes(seed: int, n: int, bits: int = 128,
         [[True], sidx[1:] != sidx[:-1]]))
     if len(sidx):
         flat[sidx[starts]] ^= np.bitwise_xor.reduceat(svals, starts)
+    return out
+
+
+#: rows generated at a time on the device: bounds the [rows, bits] random
+#: bytes at 512 MB for 128-bit codes
+DEVICE_GEN_CHUNK = 4 * 1024 * 1024
+
+
+def clustered_codes_device(seed: int, n: int, bits: int = 128,
+                           n_clusters: int = 64, flip_p: float = 0.05, *,
+                           device=None) -> torch.Tensor:
+    """Clustered codes generated on ``device``: ``int32[n, bits // 32]``.
+
+    The distribution family of the reference's device generator
+    (``verticut_tpu/codes.py:95-143``): ``n_clusters`` uniform random
+    centers, each row a uniformly drawn center with every bit flipped with
+    probability ``round(flip_p * 256) / 256`` (at least 1/256), decided by
+    one random byte per bit; rows are made in chunks of at most
+    :data:`DEVICE_GEN_CHUNK`. The bits come from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``: the same seed on the same kind of
+    device gives the same codes, but not the reference's (``jax.random``
+    draws other numbers)."""
+    w = bits // 32
+    thresh = max(1, round(flip_p * 256))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    centers = torch.randint(0, 1 << 32, (n_clusters, w), dtype=torch.int64,
+                            generator=gen, device=device)
+    centers = torch.where(centers >= 1 << 31, centers - (1 << 32),
+                          centers).to(torch.int32)
+    # bit b of a word as an int32 bit pattern: -2^31 for the sign bit, and
+    # a sum of distinct ones never leaves the int32 range
+    pow2 = torch.tensor([1 << b for b in range(31)] + [-(1 << 31)],
+                        dtype=torch.int32, device=device)
+    out = torch.empty((n, w), dtype=torch.int32, device=device)
+    for r0 in range(0, n, DEVICE_GEN_CHUNK):
+        rows = min(DEVICE_GEN_CHUNK, n - r0)
+        assign = torch.randint(0, n_clusters, (rows,), generator=gen,
+                               device=device)
+        rb = torch.randint(0, 256, (rows, w, 32), dtype=torch.uint8,
+                           generator=gen, device=device)
+        mask = ((rb < thresh) * pow2).sum(dim=-1, dtype=torch.int32)
+        del rb
+        out[r0:r0 + rows] = centers[assign] ^ mask
     return out
 
 

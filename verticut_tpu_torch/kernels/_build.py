@@ -101,18 +101,11 @@ def check_codes(name: str, queries: torch.Tensor, db: torch.Tensor) -> None:
         raise ValueError(f"queries on {queries.device}, db on {db.device}")
 
 
-#: words per code the kernels are written for (128-bit codes)
-KERNEL_WORDS = 4
-
-
 def check_kernel_operands(name: str, queries: torch.Tensor,
                           db: torch.Tensor) -> None:
-    """What the kernels take beyond :func:`check_codes`: CUDA tensors,
-    128-bit codes, contiguous rows."""
+    """What the kernels take beyond :func:`check_codes`: CUDA tensors with
+    contiguous rows. Every code width and block has a kernel instance."""
     if queries.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for {queries.device}")
-    if queries.shape[1] != KERNEL_WORDS:
-        raise ValueError(f"the kernel takes {32 * KERNEL_WORDS}-bit codes, "
-                         f"got {32 * queries.shape[1]}-bit")
     if not (queries.is_contiguous() and db.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")

@@ -7,7 +7,9 @@ such row reports ``bits + 1``.
 
 A CPU tensor takes :func:`blockmin_reference`, the plain PyTorch version.
 A CUDA tensor launches ``csrc/blockmin.cu`` or raises: there is no
-fallback. The kernel is built and loaded by :mod:`._build`.
+fallback. The kernel is built and loaded by :mod:`._build`. It has a fast
+instance for 128-bit codes at the blocks of :data:`FAST_BLOCKS` and a
+generic instance for every other code width and block.
 
 This is the counterpart of three TPU kernels
 (``verticut_tpu/ops/pallas/linear_scan.py``): K1 ``pallas_blockmin_t2``
@@ -29,12 +31,12 @@ from verticut_tpu_torch.kernels import _build
 
 NAME = "blockmin"
 SOURCE = _build.source(NAME)
-#: block sizes the kernel is instantiated for: block/32 codes per lane and
-#: one warp reduction. K3 also takes 16, 1024 and 2048 (any divisor of its
-#: 2048-row sub-tile); those raise here (ROADMAP.md Queue 2)
-KERNEL_BLOCKS: Tuple[int, ...] = (32, 64, 128, 256, 512)
+#: blocks of the fast instance (128-bit codes only): block/32 codes per
+#: lane and one warp reduction; the generic instance takes the rest
+FAST_BLOCKS: Tuple[int, ...] = (32, 64, 128, 256, 512)
 
-#: kernel launches made by :func:`blockmin` (never by the twin)
+#: kernel launches made by :func:`blockmin`, either instance (never by the
+#: twin)
 launches = 0
 
 #: elements of the twin's [Q, rows, W] temporaries per corpus chunk
@@ -51,7 +53,7 @@ def _load():
     vp = ctypes.c_void_p
     return _build.load(NAME, {"vt_blockmin": (
         vp, vp, vp, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, vp)})
+        ctypes.c_int, ctypes.c_longlong, vp)})
 
 
 def _check(queries: torch.Tensor, db: torch.Tensor, n: int, block: int):
@@ -95,9 +97,6 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
     if queries.device.type == "cpu":
         return blockmin_reference(queries, db, n, block)
     _build.check_kernel_operands(NAME, queries, db)
-    if block not in KERNEL_BLOCKS:
-        raise ValueError(f"the kernel takes block in {KERNEL_BLOCKS}, got "
-                         f"block={block}")
     global launches
     lib = _load()
     nq = queries.shape[0]
@@ -108,8 +107,8 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vt_blockmin(queries.data_ptr(), db.data_ptr(),
-                              out.data_ptr(), nq, n, db.shape[0], block,
-                              stream)
+                              out.data_ptr(), nq, n, db.shape[0],
+                              queries.shape[1], block, stream)
     _build.check_launch(lib, err, "blockmin")
     launches += 1
     return out

@@ -5,7 +5,8 @@ Hamming distance between ``queries[q]`` and ``db[j]``, for any Q and N.
 
 A CPU tensor takes :func:`pairwise_reference`, the plain PyTorch version.
 A CUDA tensor launches ``csrc/pairwise.cu`` or raises: there is no
-fallback. The kernel is built and loaded by :mod:`._build`.
+fallback. The kernel is built and loaded by :mod:`._build`. It has a fast
+instance for 128-bit codes and a generic one for every other width.
 
 This is the counterpart of the TPU kernel K4 ``pallas_pairwise_hamming``
 (``verticut_tpu/ops/pallas/linear_scan.py``), a ±1 bf16 MXU GEMM over
@@ -24,7 +25,8 @@ from verticut_tpu_torch.kernels import _build
 NAME = "pairwise"
 SOURCE = _build.source(NAME)
 
-#: kernel launches made by :func:`pairwise` (never by the twin)
+#: kernel launches made by :func:`pairwise`, either instance (never by the
+#: twin)
 launches = 0
 
 #: elements of the twin's [Q, rows, W] temporaries per corpus chunk
@@ -40,7 +42,7 @@ def build() -> None:
 def _load():
     vp = ctypes.c_void_p
     return _build.load(NAME, {"vt_pairwise": (
-        vp, vp, vp, ctypes.c_int, ctypes.c_longlong, vp)})
+        vp, vp, vp, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, vp)})
 
 
 def pairwise_reference(queries: torch.Tensor,
@@ -73,7 +75,7 @@ def pairwise(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vt_pairwise(queries.data_ptr(), db.data_ptr(),
-                              out.data_ptr(), nq, n, stream)
+                              out.data_ptr(), nq, n, queries.shape[1], stream)
     _build.check_launch(lib, err, "pairwise")
     launches += 1
     return out

@@ -4,6 +4,9 @@ Port of ``verticut_tpu/ops/chunks.py``. A probe's candidate row range
 ``[start, start + count)`` becomes the ``blk``-aligned entry blocks it
 straddles, each with a ``(lo, hi)`` window of valid rows; all chunks of all
 probes of a query are flattened into one fixed budget of ``chb`` slots.
+The blocks are then fetched and scored from the inline ``(id, code)`` rows
+(:func:`fetch_score_blocks`) or from the compact layout's id-only rows and
+the shared code array (:func:`fetch_score_idrows`).
 """
 
 from __future__ import annotations
@@ -78,3 +81,31 @@ def fetch_score_blocks(entry_rows: torch.Tensor, blk_id: torch.Tensor,
     dist = torch.where(valid, dist, INF_DIST)
     ids = torch.where(valid, ids, INVALID_ID)
     return dist.reshape(nq, chb * blk), ids.reshape(nq, chb * blk)
+
+
+def fetch_score_idrows(entry_idrows: torch.Tensor, codes: torch.Tensor,
+                       blk_id: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, queries: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The compact layout's fetch + score: gather the descriptor blocks of
+    id-only rows (``int32[NBc, blk]``, pad id -1), then each candidate's
+    code from the id-ordered ``codes`` ``int32[N, W]``, and score them.
+    Same outputs as :func:`fetch_score_blocks`. The chunk axis is cut into
+    slices so the gathered ``[Q, slice, blk, W]`` codes stay under 2^23
+    words, as the reference slices it."""
+    nq, chb = blk_id.shape
+    blk = entry_idrows.shape[1]
+    n, w = codes.shape
+    pos = torch.arange(blk, dtype=torch.int32, device=blk_id.device)
+    sl = max(8, (1 << 23) // max(nq * blk * w, 1))
+    d_parts, i_parts = [], []
+    for c0 in range(0, chb, sl):
+        cid = entry_idrows[blk_id[:, c0:c0 + sl].long()]      # [Q, s, blk]
+        g = codes[cid.clamp(0, n - 1).long()]                  # [Q,s,blk,W]
+        dist = popcount32(g ^ queries[:, None, None, :]).sum(
+            dim=-1, dtype=torch.int32)
+        ok = ((pos >= lo[:, c0:c0 + sl, None])
+              & (pos < hi[:, c0:c0 + sl, None]) & (cid >= 0))
+        d_parts.append(torch.where(ok, dist, INF_DIST).reshape(nq, -1))
+        i_parts.append(torch.where(ok, cid, INVALID_ID).reshape(nq, -1))
+    return torch.cat(d_parts, dim=-1), torch.cat(i_parts, dim=-1)

@@ -6,9 +6,9 @@ per query is
 slots hold ``(INF_DIST, -1)``. Candidates are selected as ascending keys
 ``dist << 24 | id`` (:func:`pack_keys`), unique per element, so
 ``torch.topk``'s undefined tie order never shows: equal keys are equal
-values. Ids must stay below 2^24 (:func:`can_pack`); the
-reference's wide-id ``_pos`` variants are not ported yet (ROADMAP.md,
-Queue 1).
+values. Ids must stay below 2^24 (:func:`can_pack`); above that the
+``_pos`` selections keep explicit ``(dist, id)`` strips and select on
+``dist << 32 | id`` keys instead, in the same order.
 
 The brute-force scans select on wider keys, ``dist << 32 | id``
 (:func:`chunk_topk_affine`, :func:`merge_topk`), which hold any int32 id.
@@ -29,6 +29,7 @@ SENTINEL_KEY = 0xFFFFFFFF
 
 #: the invalid scan key: above every valid ``dist << 32 | id`` key
 SCAN_SENTINEL = 1 << 62
+_INT64_MAX = (1 << 63) - 1
 
 #: widest chunk axis the chunk-min pre-selection admits, and the widest
 #: strip it selects (the reference's _CHUNKMIN_MAX_CHB and _TOPK_WIDE;
@@ -130,6 +131,76 @@ def merge_strips_packed(pool_dist: torch.Tensor, pool_id: torch.Tensor,
     dup[:, 1:] = (top[:, 1:] == top[:, :-1]) & (top[:, 1:] != SENTINEL_KEY)
     top = torch.where(dup, SENTINEL_KEY, top)
     return unpack_keys(select_asc(top, p))
+
+
+def _pair_keys(cand_dist: torch.Tensor, cand_id: torch.Tensor) -> torch.Tensor:
+    """Ascending keys ``dist << 32 | id`` for ids of any int32 size;
+    invalid slots (``id < 0``) get :data:`SCAN_SENTINEL`."""
+    k = (cand_dist.to(torch.int64) << 32) | cand_id.to(torch.int64)
+    return torch.where(cand_id >= 0, k, SCAN_SENTINEL)
+
+
+def _unpair_keys(top: torch.Tensor):
+    """Inverse of :func:`_pair_keys`, sentinel slots at ``(INF_DIST,
+    -1)``."""
+    invalid = top == SCAN_SENTINEL
+    return (torch.where(invalid, INF_DIST, top >> 32).to(torch.int32),
+            torch.where(invalid, INVALID_ID, top & 0xFFFFFFFF).to(torch.int32))
+
+
+def table_topk_pos(cand_dist: torch.Tensor, cand_id: torch.Tensor, p: int):
+    """One table's top-``p`` candidates for ids of any size:
+    ``[Q, C] -> (dist int32[Q, min(p, C)], id int32[Q, min(p, C)])``,
+    ascending by ``(dist, id)`` (``dist << 32 | id`` keys, unique within
+    one table at one step). The reference selects on ``(dist, slot)``
+    uint32 keys instead, which keeps the table's first slots, not its
+    smallest ids, at an equal distance, and whose 8-bit distance field
+    wraps at 256 (ROADMAP.md Queue 3)."""
+    keys = _pair_keys(cand_dist, cand_id)
+    return _unpair_keys(torch.topk(keys, min(p, keys.shape[-1]), dim=-1,
+                                   largest=False, sorted=True).values)
+
+
+def table_topk_chunkmin_pos(cand_dist: torch.Tensor, cand_id: torch.Tensor,
+                            p: int, blk: int):
+    """:func:`table_topk_chunkmin_packed`'s chunk-min pre-selection on
+    ``dist << 32 | id`` keys: the result equals :func:`table_topk_pos`,
+    and falls back to it at the reference's shapes."""
+    q, c = cand_dist.shape
+    chb = c // blk
+    if (4 * p * blk > c or c % blk or chb > _CHUNKMIN_MAX_CHB
+            or p > _TOPK_WIDE):
+        return table_topk_pos(cand_dist, cand_id, p)
+    kc3 = _pair_keys(cand_dist, cand_id).reshape(q, chb, blk)
+    ci = torch.topk(kc3.amin(dim=-1), p, dim=-1, largest=False).indices
+    g = torch.gather(kc3, 1, ci[:, :, None].expand(q, p, blk))
+    return _unpair_keys(select_asc(g.reshape(q, p * blk), p))
+
+
+def merge_strips_dedup_pos(pool_dist: torch.Tensor, pool_id: torch.Tensor,
+                           strip_dist: torch.Tensor, strip_id: torch.Tensor):
+    """Dedup merge of the pool with explicit ``(dist, id)`` strips, for ids
+    of any size. One sort of ``id << 32 | dist`` keys (invalid ids last)
+    brings the copies of an id together, all but the first are dropped,
+    and the ``p`` smallest ``dist << 32 | id`` keys of the rest, ascending,
+    form the new pool: equal distances go to the smaller id, as in the
+    reference's merge, whose slots follow the id-sorted order."""
+    p = pool_dist.shape[-1]
+    d = torch.cat([pool_dist, strip_dist], dim=-1).to(torch.int64)
+    i = torch.cat([pool_id, strip_id], dim=-1).to(torch.int64)
+    by_id = torch.sort(torch.where(i >= 0, (i << 32) | d, _INT64_MAX),
+                       dim=-1).values
+    sid, sd = by_id >> 32, by_id & 0xFFFFFFFF
+    keep = by_id != _INT64_MAX
+    keep[:, 1:] &= sid[:, 1:] != sid[:, :-1]
+    top = select_asc(torch.where(keep, (sd << 32) | sid, SCAN_SENTINEL),
+                     min(p, d.shape[-1]))
+    out_d, out_i = _unpair_keys(top)
+    if out_d.shape[-1] < p:
+        pad = p - out_d.shape[-1]
+        out_d = torch.nn.functional.pad(out_d, (0, pad), value=INF_DIST)
+        out_i = torch.nn.functional.pad(out_i, (0, pad), value=INVALID_ID)
+    return out_d, out_i
 
 
 def kth_stats(pool_dist: torch.Tensor, pool_id: torch.Tensor, k: int):

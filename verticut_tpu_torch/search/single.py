@@ -14,20 +14,26 @@ fall-through when no radius stage fits ``fused_max_masks``).
 :func:`_apply_fallbacks` then re-runs still-overflowed queries at larger
 caps and scans what remains.
 
+The fused driver is split as the reference splits it:
+:func:`mih_search_dispatch` runs the pipeline up to the packed result row
+(:func:`_pack_row`) and starts its copy to the host;
+:func:`mih_search_finalize` waits for the copy, decodes the row and runs
+the fallbacks. :func:`mih_search` is the two back to back.
+
 Where the reference's single device program branches with ``lax.cond``,
-the port reads a scalar from the device and branches on the host. The
-fused driver returns the stats as the reference's packed result row
+the port reads a scalar from the device and branches on the host (about
+nine reads per batch), so a dispatch returns only once most of its device
+work is done. The fused driver returns the stats as the packed row
 carries them: ``radius`` saturated at 127 and ``n_probes`` at 0xFFFF; the
 loop driver, as the reference's, saturates neither.
+
+Ids of 2^24 and more do not fit the packed ``dist << 24 | id`` selection
+keys: the radius step then keeps explicit ``(dist, id)`` strips (the
+``_pos`` selections of :mod:`ops.topk`), as the reference does.
 
 The reference's loop driver writes its last query's result from a pad row
 when a batch is compacted twice (ROADMAP.md Queue 3); the port retires
 real rows only.
-
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md
-Queue 1): ``overflow_to_scan=True`` and the ``mih_search_dispatch`` /
-``mih_search_finalize`` pipelining (item 3), and ids of 2^24 and more (the
-``_pos`` selections, item 4).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 
 from verticut_tpu_torch.bits import as_codes, shr
 from verticut_tpu_torch.config import MIHConfig, SearchConfig
-from verticut_tpu_torch.index.mih import MIHIndex, MIHTable, entry_block_size
+from verticut_tpu_torch.index.mih import MIHIndex, MIHTable
 from verticut_tpu_torch.ops import chunks as chunks_lib
 from verticut_tpu_torch.ops import enumeration, topk
 from verticut_tpu_torch.ops.hamming import scan_blockmin
@@ -54,6 +60,11 @@ RANGE_BLK = 32
 # Smallest batch that turns on the scan-dominance stage skip (diverts
 # scan-dominated batches from deep enumeration to the scan ladder).
 SCAN_DOMINANCE_MIN_NQ = 1024
+
+# Largest corpus whose overflow retries may ride the scan ladder
+# (overflow_to_scan): above it one scan of the corpus costs more than a
+# capped re-enumeration (the reference's rule).
+OVERFLOW_SCAN_MAX_N = 32_000_000
 
 
 class SearchState(NamedTuple):
@@ -68,6 +79,9 @@ class SearchState(NamedTuple):
 
 
 class SearchResult(NamedTuple):
+    """One batch's answers, on the host (CPU tensors), as the reference
+    returns host arrays."""
+
     dists: torch.Tensor       # int32[Q, k] ascending
     ids: torch.Tensor         # int32[Q, k] (-1 = fewer than k results exist)
     radius: torch.Tensor      # int32[Q], saturated at 127
@@ -92,15 +106,18 @@ def _take(state: SearchState, sel: torch.Tensor) -> SearchState:
 # One radius step
 # --------------------------------------------------------------------------
 
-def _table_candidates_range(table: MIHTable, queries: torch.Tensor,
-                            q_sub: torch.Tensor, pmasks: torch.Tensor,
-                            done: torch.Tensor, cap: int, s_bits: int):
+def _table_candidates_range(table: MIHTable, codes: Optional[torch.Tensor],
+                            queries: torch.Tensor, q_sub: torch.Tensor,
+                            pmasks: torch.Tensor, done: torch.Tensor,
+                            cap: int, s_bits: int, blk: int):
     """Candidates of one range table at one radius: one probe per flipped
-    prefix fetches the prefix's whole row range. Returns ``(cand_dist
-    [Q, S], cand_id [Q, S], n_scored, overflow, n_probe, n_nonempty)``,
-    S = the chunk budget in slots."""
+    prefix fetches the prefix's whole row range of ``blk`` entries per row,
+    from the inline rows, or with ``codes`` given from the compact id rows
+    and ``codes``. Returns ``(cand_dist [Q, S], cand_id [Q, S], n_scored,
+    overflow, n_probe, n_nonempty)``, S = the chunk budget in slots."""
     d = table.directory
-    blk = entry_block_size(queries.shape[-1])
+    compact = codes is not None
+    rows = table.entry_idrows if compact else table.entry_rows
     chb = max(4, cap // blk)
     pref = shr(q_sub, s_bits - d.pbits)[:, None] ^ pmasks[None, :]  # [Q, H]
     starts, counts = d.range_lookup(pref)
@@ -109,42 +126,62 @@ def _table_candidates_range(table: MIHTable, queries: torch.Tensor,
     n_probe = torch.where(active, pref.shape[1], 0).to(torch.int32)
     n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
     blk_id, lo, hi, _nch, overflow = chunks_lib.chunk_descriptors(
-        starts, counts, blk=blk, chb=chb, n_blocks=table.entry_rows.shape[0])
-    dist, cand_id = chunks_lib.fetch_score_blocks(
-        table.entry_rows, blk_id, lo, hi, queries, blk=blk)
+        starts, counts, blk=blk, chb=chb, n_blocks=rows.shape[0])
+    if compact:
+        dist, cand_id = chunks_lib.fetch_score_idrows(
+            rows, codes, blk_id, lo, hi, queries)
+    else:
+        dist, cand_id = chunks_lib.fetch_score_blocks(
+            rows, blk_id, lo, hi, queries, blk=blk)
     n_scored = (hi - lo).sum(dim=-1, dtype=torch.int32)
     return dist, cand_id, n_scored, overflow, n_probe, n_nonempty
 
 
 def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
                 masks: torch.Tensor, state: SearchState, *, radius: int,
-                n_tables: int, knn: int, cap: int, s_bits: int,
-                approximate: bool = False) -> SearchState:
+                n_tables: int, knn: int, cap: int, s_bits: int, blk: int,
+                approximate: bool = False,
+                codes: Optional[torch.Tensor] = None) -> SearchState:
     """Process one radius group for the whole batch. Exact mode stops a
     query when its kth distance is at most ``(radius + 1) * n_tables``;
     approximate mode when its ``k * factor`` pool is full
     (``search_worker.cc:136-137``); both at ``radius >= s_bits``. Each
     table's candidates are cut to a pool-wide strip as soon as they
     are scored (ids are unique within one table at one step), so only one
-    table's candidate slab is alive at a time."""
-    blk = entry_block_size(queries.shape[-1])
+    table's candidate slab is alive at a time. Strips are packed
+    ``dist << 24 | id`` keys while ids and distances fit them
+    (:func:`topk.can_pack`), else explicit ``(dist, id)`` pairs.
+    ``blk`` is the tables' entries per row (:meth:`MIHIndex.fetch_block`);
+    ``codes`` is given for the compact layout only and feeds its
+    candidate codes."""
+    w = queries.shape[-1]
     p = state.pool_dist.shape[-1]
+    max_id = max(t.n_entries(w) for t in tables)
+    packed = topk.can_pack(max_id - 1, 32 * w)
     overflow = state.overflow
     total_c = torch.zeros_like(state.n_cands)
     n_probes, n_nonempty = state.n_probes, state.n_nonempty
     strips = []
     for t in range(n_tables):
         d, i, tot, ovf, npb, nne = _table_candidates_range(
-            tables[t], queries, q_subs[:, t], masks, state.done, cap, s_bits)
-        strips.append(topk.table_topk_chunkmin_packed(d, i, p, blk))
+            tables[t], codes, queries, q_subs[:, t], masks, state.done, cap,
+            s_bits, blk)
+        strips.append(topk.table_topk_chunkmin_packed(d, i, p, blk) if packed
+                      else topk.table_topk_chunkmin_pos(d, i, p, blk))
         del d, i
         overflow = overflow | ovf
         total_c = total_c + torch.clamp(tot, max=cap)
         n_probes = n_probes + npb
         n_nonempty = n_nonempty + nne
-    pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
-                                      torch.cat(strips, dim=-1),
-                                      n_copies=n_tables + 1)
+    if packed:
+        pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
+                                          torch.cat(strips, dim=-1),
+                                          n_copies=n_tables + 1)
+    else:
+        sd, si = zip(*strips)
+        pd, pi = topk.merge_strips_dedup_pos(
+            state.pool_dist, state.pool_id, torch.cat(sd, dim=-1),
+            torch.cat(si, dim=-1))
     if approximate:
         newly_done = pi[:, -1] >= 0
     else:
@@ -237,13 +274,16 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                  q_subs: torch.Tensor, state0: SearchState, *, schedule,
                  caps, batch_caps, knn: int, pool_size: int,
                  retry_caps=None, retry_budget: int = 0,
-                 scan_budget: int = 0, scan_dominance: int = 0
-                 ) -> SearchState:
+                 scan_budget: int = 0, scan_dominance: int = 0,
+                 overflow_to_scan: bool = False) -> SearchState:
     """Stages with compaction, then the overflow retry ladder, then the
     scan ladder. ``step_fn(i, radius, cap, queries, q_subs, state)`` is one
     radius step; ``scan_fn(queries) -> (dists [B, knn], ids [B, knn])`` the
     exact scan. ``scan_dominance`` > 0 skips every stage after the first
-    when at least that many queries are still active after it."""
+    when at least that many queries are still active after it.
+    ``overflow_to_scan`` sends overflowed-but-finished rows to the scan
+    ladder with the stragglers (one ladder, not two); the caller then
+    passes no retry caps."""
     nq = queries.shape[0]
     dev = queries.device
 
@@ -319,6 +359,10 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
         # tiered scan of the unfinished rows: exactly the first tier whose
         # budget covers the straggler count runs
         flag = ~full.done
+        if overflow_to_scan:
+            # the scan is exact, so it supersedes any clipped pool; the
+            # blend below marks these rows done and clears their overflow
+            flag = flag | full.overflow
         n_sc = int(flag.sum())
         perm = torch.argsort((~flag).to(torch.int32), stable=True)
         budgets = [min(scan_budget, nq)]
@@ -352,25 +396,29 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
 # Entry point
 # --------------------------------------------------------------------------
 
-def _check_supported(index: MIHIndex, scfg: SearchConfig) -> None:
+def _check_supported(scfg: SearchConfig) -> None:
     if scfg.use_bitmap:
         raise ValueError(
             "use_bitmap=True has no effect on the range-directory engine "
             "(range fetches subsume the occupancy test)")
-    if scfg.overflow_to_scan:
-        raise NotImplementedError(
-            "overflow_to_scan=True is not ported yet: ROADMAP.md Queue 1 "
-            "item 3")
-    max_id = max(t.n_entries(index.cfg.n_words) for t in index.tables)
-    if not topk.can_pack(max_id - 1, index.cfg.bits):
-        raise NotImplementedError(
-            f"{max_id} entries need the wide-id (_pos) selections, not "
-            "ported yet: ROADMAP.md Queue 1 item 4")
 
 
 def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
     m = np.concatenate([enumeration.flip_masks(mask_bits, g) for g in group])
     return torch.from_numpy(m.view(np.int32)).to(device)
+
+
+def _prepare(index: MIHIndex, queries, scfg: SearchConfig):
+    """The request as every driver takes it: the effective config, the
+    queries as a contiguous int32 tensor on the index's device, and the
+    radius schedule."""
+    scfg = effective_scfg(scfg)
+    _check_supported(scfg)
+    queries = as_codes(queries, index.device).contiguous()
+    _check_query_shape(index, queries)
+    mask_bits = index.tables[0].directory.pbits   # probes are per prefix
+    return scfg, queries, _radius_schedule(scfg, index.cfg, index.n,
+                                           mask_bits)
 
 
 def mih_search(index: MIHIndex, queries,
@@ -379,22 +427,16 @@ def mih_search(index: MIHIndex, queries,
     """Batched K-NN over the MIH index, on the index's device.
 
     ``queries``: ``uint32[Q, W]`` numpy codes or an ``int32[Q, W]`` tensor.
-    Runs the fused staged pipeline, or the loop driver when ``scfg.fused``
-    is off or no radius stage fits ``fused_max_masks``; queries whose
+    Runs the fused staged pipeline (:func:`mih_search_dispatch` then
+    :func:`mih_search_finalize`), or the loop driver when ``scfg.fused`` is
+    off or no radius stage fits ``fused_max_masks``; queries whose
     candidate budgets still overflowed are re-run at 4x caps, and queries
-    unfinished at the last stage take the exact linear scan."""
-    scfg = effective_scfg(scfg)
-    _check_supported(index, scfg)
-    queries = as_codes(queries, index.device).contiguous()
-    _check_query_shape(index, queries)
-    mask_bits = index.tables[0].directory.pbits   # probes are per prefix
-    schedule = _radius_schedule(scfg, index.cfg, index.n, mask_bits)
-    fused_schedule = tuple(
-        (r, g) for r, g in schedule
-        if sum(enumeration.n_masks(mask_bits, x) for x in g)
-        <= scfg.fused_max_masks)
-    if scfg.fused and fused_schedule:
-        return _mih_search_fused(index, queries, scfg, _cap, fused_schedule)
+    unfinished at the last stage take the exact linear scan. The result
+    lies on the host."""
+    h = mih_search_dispatch(index, queries, scfg, _cap)
+    if h is not None:
+        return mih_search_finalize(h)
+    scfg, queries, schedule = _prepare(index, queries, scfg)
     return _mih_search_loop(index, queries, scfg, _cap, schedule)
 
 
@@ -404,14 +446,135 @@ def _step_fn(index: MIHIndex, scfg: SearchConfig, r: int, cap: int):
     return functools.partial(
         radius_step, tuple(index.tables), radius=r,
         n_tables=index.cfg.n_tables, knn=scfg.knn, cap=cap,
-        s_bits=index.cfg.s_bits, approximate=scfg.approximate)
+        s_bits=index.cfg.s_bits, blk=index.fetch_block(),
+        approximate=scfg.approximate,
+        codes=index.codes if index.compact else None)
 
 
-def _mih_search_fused(index: MIHIndex, queries: torch.Tensor,
-                      scfg: SearchConfig, _cap: Optional[int],
-                      schedule) -> SearchResult:
-    """The fused driver: the whole schedule through :func:`run_pipeline`,
-    then the host fallbacks."""
+# --------------------------------------------------------------------------
+# The fused driver: dispatch, the packed result row, finalize
+# --------------------------------------------------------------------------
+
+class FusedHandle(NamedTuple):
+    """An in-flight fused search: the packed result row on the index's
+    device (see :func:`_pack_row`), its host copy and the CUDA event that
+    marks the copy done (on the CPU: the row itself and no event), and
+    what finalize needs besides."""
+
+    packed: torch.Tensor     # int32 [Q, k + 3] or [Q, 2k + 3]
+    host: torch.Tensor       # the same row on the host (pinned on CUDA)
+    event: Optional["torch.cuda.Event"]
+    queries: torch.Tensor
+    index: MIHIndex
+    scfg: SearchConfig
+    cap: Optional[int]
+
+
+def _result_id_bits(tables, bits: int) -> int:
+    """Bits of id payload when one 32-bit word holds a result ``(dist,
+    id)`` pair, 0 when it cannot (the ``[Q, 2k + 3]`` layout). Sized so
+    every true distance 0..bits and an all-ones sentinel fit above."""
+    max_id = max(t.n_entries(bits // 32) for t in tables)
+    id_bits = max(1, int(max_id - 1).bit_length())
+    return id_bits if (1 << (32 - id_bits)) - 1 > bits else 0
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _pack_row(full: SearchState, k: int, id_bits: int) -> torch.Tensor:
+    """The reference's packed result row (``fused_pipeline_packed``), as
+    int32 bit patterns. With ``id_bits`` > 0: ``[Q, k + 3]`` = the top-k
+    pairs as ``dist << id_bits | id`` words (all ones = empty slot), then
+    the three stat words; else ``[Q, 2k + 3]`` = the top-k dists, the top-k
+    ids, the three stat words. The stat words are ``flags`` = done (bit 0)
+    | overflow (bit 1) | covf (bit 2, always 0 on one device) | radius
+    saturated at 127 (bits 3-9) | n_probes saturated at 0xFFFF (bits
+    16-31), then ``n_nonempty`` and ``n_cands``."""
+    flags = (full.done.long() | (full.overflow.long() << 1)
+             | (full.radius.clamp(max=127).long() << 3)
+             | (full.n_probes.clamp(max=0xFFFF).long() << 16))
+    cols = torch.stack([_i32(flags), full.n_nonempty, full.n_cands], dim=1)
+    pd, pi = full.pool_dist[:, :k], full.pool_id[:, :k]
+    if id_bits:
+        pool = torch.where(pi < 0, -1,
+                           _i32((pd.long() << id_bits) | pi.long()))
+        return torch.cat([pool, cols], dim=1)
+    return torch.cat([pd, pi, cols], dim=1)
+
+
+def _unpack_row(row: torch.Tensor, k: int, id_bits: int) -> dict:
+    """Inverse of :func:`_pack_row` on the host: the per-query fields."""
+    u = row.long() & 0xFFFFFFFF
+    if id_bits:
+        pool = u[:, :k]
+        empty = pool == 0xFFFFFFFF
+        dists = torch.where(empty, topk.INF_DIST, pool >> id_bits)
+        ids = torch.where(empty, topk.INVALID_ID, pool & ((1 << id_bits) - 1))
+        stats = u[:, k:]
+    else:
+        dists, ids, stats = row[:, :k], row[:, k:2 * k], u[:, 2 * k:]
+    flags = stats[:, 0]
+    return dict(dists=dists.to(torch.int32, copy=True),
+                ids=ids.to(torch.int32, copy=True),
+                not_done=(flags & 1) == 0, overflow=(flags & 2) != 0,
+                radius=((flags >> 3) & 0x7F).to(torch.int32),
+                n_probes=(flags >> 16).to(torch.int32),
+                n_nonempty=stats[:, 1].to(torch.int32),
+                n_cands=stats[:, 2].to(torch.int32))
+
+
+def mih_search_dispatch(index: MIHIndex, queries,
+                        scfg: SearchConfig = SearchConfig(),
+                        _cap: Optional[int] = None
+                        ) -> Optional[FusedHandle]:
+    """The fused driver up to the packed result row, on the index's
+    device; on CUDA the row's copy into pinned host memory is started and
+    an event recorded behind it, and the call returns without waiting for
+    the copy. Returns None where the fused driver does not run this
+    request (``scfg.fused`` off, or no radius stage under
+    ``fused_max_masks``). Pair with :func:`mih_search_finalize`; several
+    handles may be in flight and finalized in any order."""
+    if not scfg.fused:
+        return None
+    scfg, queries, schedule = _prepare(index, queries, scfg)
+    mask_bits = index.tables[0].directory.pbits
+    schedule = tuple(
+        (r, g) for r, g in schedule
+        if sum(enumeration.n_masks(mask_bits, x) for x in g)
+        <= scfg.fused_max_masks)
+    if not schedule:
+        return None
+    packed = _fused_row(index, queries, scfg, _cap, schedule)
+    if packed.is_cuda:
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        with torch.cuda.device(packed.device):
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+    else:
+        host, event = packed, None
+    return FusedHandle(packed=packed, host=host, event=event,
+                       queries=queries, index=index, scfg=scfg, cap=_cap)
+
+
+def mih_search_finalize(h: FusedHandle) -> SearchResult:
+    """Wait for a dispatched search's row to reach the host, decode it and
+    apply the fallbacks."""
+    if h.event is not None:
+        h.event.synchronize()
+    row = _unpack_row(h.host, h.scfg.knn,
+                      _result_id_bits(h.index.tables, h.index.cfg.bits))
+    return _apply_fallbacks(h.index, h.queries, h.scfg, h.cap, h.scfg.knn,
+                            **row)
+
+
+def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
+               _cap: Optional[int], schedule) -> torch.Tensor:
+    """The whole schedule through :func:`run_pipeline`, as the packed
+    result row."""
     cfg = index.cfg
     dev = index.device
     nq = queries.shape[0]
@@ -419,7 +582,7 @@ def _mih_search_fused(index: MIHIndex, queries: torch.Tensor,
     mask_bits = index.tables[0].directory.pbits
     scan_budget = min(nq, max(64, nq // 64)) if index.codes is not None else 0
     caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
-                                         entry_block_size(cfg.n_words))
+                                         index.fetch_block())
                  for _, g in schedule)
     batch_caps = tuple(
         nq if i == 0 else max(64, nq >> (_stage_shift(k, index.n)
@@ -427,6 +590,11 @@ def _mih_search_fused(index: MIHIndex, queries: torch.Tensor,
         for i in range(len(schedule)))
     masks = [_flip_masks(mask_bits, g, dev) for _, g in schedule]
     retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
+    # exact mode only, as the dominance gate: the exact scan would upgrade
+    # approximate answers
+    overflow_to_scan = (scfg.overflow_to_scan and scan_budget > 0
+                        and not scfg.approximate
+                        and index.n <= OVERFLOW_SCAN_MAX_N)
 
     def step_fn(i, r, cap, cq, cqs, cs):
         return _step_fn(index, scfg, r, cap)(cq, cqs, masks[i], cs)
@@ -441,18 +609,14 @@ def _mih_search_fused(index: MIHIndex, queries: torch.Tensor,
         index.table_subs(queries), init_state(nq, pool_size, dev),
         schedule=schedule, caps=caps, batch_caps=batch_caps, knn=k,
         pool_size=pool_size,
-        retry_caps=retry_caps if retry_caps != caps else None,
-        retry_budget=min(nq, max(64, nq // 4)), scan_budget=scan_budget,
-        # exact mode only: the gate sends a batch to the exact scan, which
-        # would upgrade approximate answers
+        retry_caps=(None if overflow_to_scan or retry_caps == caps
+                    else retry_caps),
+        retry_budget=0 if overflow_to_scan else min(nq, max(64, nq // 4)),
+        scan_budget=scan_budget,
         scan_dominance=(nq // 2 if scan_budget and not scfg.approximate
-                        and nq >= SCAN_DOMINANCE_MIN_NQ else 0))
-    return _apply_fallbacks(
-        index, queries, scfg, _cap, k,
-        dists=full.pool_dist[:, :k].clone(), ids=full.pool_id[:, :k].clone(),
-        radius=full.radius.clamp(max=127), overflow=full.overflow,
-        not_done=~full.done, n_probes=full.n_probes.clamp(max=0xFFFF),
-        n_nonempty=full.n_nonempty, n_cands=full.n_cands)
+                        and nq >= SCAN_DOMINANCE_MIN_NQ else 0),
+        overflow_to_scan=overflow_to_scan)
+    return _pack_row(full, k, _result_id_bits(index.tables, cfg.bits))
 
 
 # --------------------------------------------------------------------------
@@ -504,7 +668,7 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
     orig = torch.arange(nq, device=dev)      # batch row -> original row
     for r, group in schedule:
         cap = _cap or _cap_for_radius(scfg, index.n, group, mask_bits,
-                                      entry_block_size(cfg.n_words))
+                                      index.fetch_block())
         masks = _flip_masks(mask_bits, group, dev)
         step = _step_fn(index, scfg, r, cap)
         b = cur_q.shape[0]
@@ -529,7 +693,8 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
                                             n_active)
             orig = torch.cat([orig[act],
                               orig.new_full((new_batch - n_active,), -1)])
-    final = _retire(final, orig, state, torch.ones_like(state.done))
+    final = SearchState(*(f.cpu() for f in _retire(
+        final, orig, state, torch.ones_like(state.done))))
     return _apply_fallbacks(
         index, queries, scfg, _cap, k,
         dists=final.pool_dist[:, :k].clone(),
@@ -539,27 +704,15 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
         n_cands=final.n_cands)
 
 
-def mih_search_dispatch(index: MIHIndex, queries,
-                        scfg: SearchConfig = SearchConfig()):
-    """The reference's launch-without-waiting half of a pipelined search."""
-    raise NotImplementedError(
-        "mih_search_dispatch / mih_search_finalize pipelining is not ported "
-        "yet: ROADMAP.md Queue 1 item 3; call mih_search")
-
-
-def mih_search_finalize(handle):
-    """The reference's wait-and-fallback half of a pipelined search."""
-    raise NotImplementedError(
-        "mih_search_dispatch / mih_search_finalize pipelining is not ported "
-        "yet: ROADMAP.md Queue 1 item 3; call mih_search")
-
-
 def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
                      scfg: SearchConfig, _cap: Optional[int], k: int, *,
                      dists, ids, radius, overflow, not_done, n_probes,
                      n_nonempty, n_cands) -> SearchResult:
     """Overflow retry at 4x caps, then the exact linear scan for queries
-    still unfinished (or overflowed at a cap that already covers n)."""
+    still unfinished (or overflowed at a cap that already covers n). The
+    per-query fields are host tensors, and the result stays on the host;
+    ``queries`` lies on the index's device."""
+    dev = queries.device
     redo = overflow & ~not_done
     base_cap = _cap or scfg.candidate_cap
     if bool(redo.any()):
@@ -570,7 +723,8 @@ def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
             max_rows = max(64, (1 << 25) // max(new_cap, 1))
             for lo in range(0, idxs.shape[0], max_rows):
                 part = idxs[lo:lo + max_rows]
-                sub = mih_search(index, queries[part], scfg, _cap=new_cap)
+                sub = mih_search(index, queries[part.to(dev)], scfg,
+                                 _cap=new_cap)
                 dists[part] = sub.dists
                 ids[part] = sub.ids
                 radius[part] = sub.radius
@@ -584,9 +738,10 @@ def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
                 "queries unfinished at max_enum_radius and index has no "
                 "code array for linear fallback; raise max_enum_radius")
         idxs = torch.nonzero(not_done).flatten()
-        ld, li = linear_lib.linear_search(queries[idxs], index.codes, k)
-        dists[idxs] = ld
-        ids[idxs] = li
+        ld, li = linear_lib.linear_search(queries[idxs.to(dev)], index.codes,
+                                          k)
+        dists[idxs] = ld.cpu()
+        ids[idxs] = li.cpu()
     return SearchResult(dists=dists, ids=ids, radius=radius,
                         n_probes=n_probes, n_nonempty=n_nonempty,
                         n_cands=n_cands)
