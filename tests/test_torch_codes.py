@@ -138,3 +138,26 @@ def test_clustered_codes_device_flip_rate(flip_p, bits_w):
         b = np.unpackbits(c.view(np.uint8), axis=1)
         center = b.mean(0) > 0.5
         assert abs((b != center).mean() - p) < 4 * sigma
+
+
+def test_entry_points_default_to_the_card():
+    """Given no device, clustered_codes_device and linear_search on numpy
+    codes run on the card, and raise where there is none; tensors stay
+    where they lie."""
+    from verticut_tpu_torch.search import linear_search
+    q, db = tcodes.random_codes(1, 5, 128), tcodes.random_codes(2, 50, 128)
+    calls = (lambda: tcodes.clustered_codes_device(0, 8),
+             lambda: linear_search(q, db, 3)[0])
+    if torch.cuda.is_available():
+        for call in calls:
+            assert call().device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert tcodes.clustered_codes_device(0, 8, device="cpu").device.type == \
+        "cpu"
+    d, _ = linear_search(q, bits.as_codes(db), 3)
+    assert d.device.type == "cpu"
+    d, _ = linear_search(bits.as_codes(q), db, 3)
+    assert d.device.type == "cpu"

@@ -114,7 +114,7 @@ def test_save_load_across_packages(tmp_path, writer, store_codes, keep_ids):
         port2, ref2 = load_index(path, device="cpu"), jax_load_index(path)
     else:
         save_index(path, ref)
-        port2, ref2 = load_index(path), jax_load_index(path)
+        port2, ref2 = load_index(path, device="cpu"), jax_load_index(path)
     _assert_same(port2, ref)
     _assert_same(port, ref2)
     q = packed[:32] ^ np.uint32(5)
@@ -145,4 +145,31 @@ def test_unported_layouts_raise():
         index_from_arrays({"n": np.asarray(100), "bits": np.asarray(64),
                            "n_tables": np.asarray(4),
                            "t0_offsets": np.asarray(
-                               ref.tables[0].directory.offsets)})
+                               ref.tables[0].directory.offsets)},
+                          device="cpu")
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Given no device, build_index, load_index and index_from_arrays run
+    on the card, and raise where there is none; a tensor stays where it
+    lies, and device="cpu" runs on the CPU."""
+    import torch
+    packed = jcodes.random_codes(8, 300, 128)
+    cpu = build_index(packed, MIHConfig(), device="cpu")
+    assert cpu.device.type == "cpu"
+    assert build_index(bits.as_codes(packed), MIHConfig()).device.type == "cpu"
+    path = str(tmp_path / "idx.npz")
+    port_save_index(path, cpu)
+    with np.load(path) as z:
+        arrays = dict(z)
+    calls = (lambda: build_index(packed, MIHConfig()),
+             lambda: load_index(path), lambda: index_from_arrays(arrays))
+    if torch.cuda.is_available():
+        for call in calls:
+            assert call().device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert load_index(path, device="cpu").device.type == "cpu"
+    assert index_from_arrays(arrays, device="cpu").device.type == "cpu"

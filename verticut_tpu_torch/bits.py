@@ -26,9 +26,27 @@ def to_u32(t: torch.Tensor) -> np.ndarray:
         np.uint32)
 
 
+def entry_device(device=None, *data) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else that of
+    the first tensor among ``data``, else the card. It never takes the CPU
+    unasked: with no card and no device named it raises."""
+    if device is not None:
+        return torch.device(device)
+    for x in data:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: verticut_tpu_torch runs on the "
+                           "card by default; pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")
+
+
 def as_codes(x, device=None) -> torch.Tensor:
     """Packed codes as an ``int32`` tensor: numpy uint32/int32 arrays are
-    reinterpreted, tensors pass through (moved to ``device`` if given)."""
+    reinterpreted, tensors pass through (moved to ``device`` if given).
+    A conversion helper, not an entry point: ``device=None`` leaves the
+    data where it is (numpy arrays on the CPU)."""
     if isinstance(x, torch.Tensor):
         if x.dtype != torch.int32:
             raise TypeError(f"code tensors must be int32, got {x.dtype}")

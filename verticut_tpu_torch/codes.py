@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from verticut_tpu_torch.bits import popcount32, shr
+from verticut_tpu_torch.bits import entry_device, popcount32, shr
 
 
 # --------------------------------------------------------------------------
@@ -84,7 +84,8 @@ DEVICE_GEN_CHUNK = 4 * 1024 * 1024
 def clustered_codes_device(seed: int, n: int, bits: int = 128,
                            n_clusters: int = 64, flip_p: float = 0.05, *,
                            device=None) -> torch.Tensor:
-    """Clustered codes generated on ``device``: ``int32[n, bits // 32]``.
+    """Clustered codes generated on ``device`` (by default the card, raising
+    where there is none): ``int32[n, bits // 32]``.
 
     The distribution family of the reference's device generator
     (``verticut_tpu/codes.py:95-143``): ``n_clusters`` uniform random
@@ -95,6 +96,7 @@ def clustered_codes_device(seed: int, n: int, bits: int = 128,
     ``device`` seeded with ``seed``: the same seed on the same kind of
     device gives the same codes, but not the reference's (``jax.random``
     draws other numbers)."""
+    device = entry_device(device)
     w = bits // 32
     thresh = max(1, round(flip_p * 256))
     gen = torch.Generator(device=device)

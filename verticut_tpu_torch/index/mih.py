@@ -175,7 +175,9 @@ def build_index(codes_arr, cfg: MIHConfig = MIHConfig(), *,
                 device=None, directory: str = "range",
                 store_codes: bool = True, keep_entry_ids: bool = True,
                 keep_codes: bool = True) -> MIHIndex:
-    """Build the m-table index on ``device``.
+    """Build the m-table index on ``device``: by default the card for numpy
+    codes (raising where there is none) and the tensor's own device for a
+    tensor.
 
     ``codes_arr``: ``uint32[N, W]`` numpy codes or an ``int32[N, W]``
     tensor; row i is id i. ``store_codes`` picks the inline layout (else
@@ -192,7 +194,8 @@ def build_index(codes_arr, cfg: MIHConfig = MIHConfig(), *,
     if not (store_codes or keep_codes):
         raise ValueError("the compact layout (store_codes=False) gathers "
                          "candidate codes from the kept codes")
-    codes = bits_lib.as_codes(codes_arr, device).contiguous()
+    codes = bits_lib.as_codes(
+        codes_arr, bits_lib.entry_device(device, codes_arr)).contiguous()
     if codes.ndim != 2 or codes.shape[-1] != cfg.n_words:
         raise ValueError(
             f"codes have shape {tuple(codes.shape)}, config wants "
@@ -246,7 +249,9 @@ def save_index(path: str, index: MIHIndex) -> None:
 
 def load_index(path: str, device=None) -> MIHIndex:
     """Read an index written by :func:`save_index` or by the reference's
-    ``save_index`` (range tables) onto ``device``."""
+    ``save_index`` (range tables) onto ``device`` (by default the card,
+    raising where there is none)."""
+    device = bits_lib.entry_device(device)
     with np.load(path) as z:
         return index_from_arrays(z, device=device)
 
@@ -254,8 +259,10 @@ def load_index(path: str, device=None) -> MIHIndex:
 def index_from_arrays(arrays: Mapping[str, np.ndarray],
                       device=None) -> MIHIndex:
     """The index held by the arrays of a saved ``.npz`` file (see
-    :func:`save_index`), on ``device``. Range tables only: a table saved
-    with another directory or with per-entry code copies raises."""
+    :func:`save_index`), on ``device`` (by default the card, raising where
+    there is none). Range tables only: a table saved with another
+    directory or with per-entry code copies raises."""
+    device = bits_lib.entry_device(device)
     cfg = MIHConfig(bits=int(arrays["bits"]), n_tables=int(arrays["n_tables"]))
     n = int(arrays["n"])
     want = entry_block_size(cfg.n_words) * _row_width(cfg.n_words)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from verticut_tpu_torch.bits import as_codes
+from verticut_tpu_torch.bits import as_codes, entry_device
 from verticut_tpu_torch.ops import hamming
 
 METHODS = ("auto", "blockmin", "popcount", "matmul", "pallas")
@@ -17,7 +17,9 @@ METHODS = ("auto", "blockmin", "popcount", "matmul", "pallas")
 def linear_search(queries, db, k: int, method: str = "auto",
                   chunk: int = 65536):
     """Exact top-k ``(dists int32[Q, k], ids int32[Q, k])`` ascending by
-    ``(dist, id)``, on ``db``'s device.
+    ``(dist, id)``, on ``db``'s device if it is a tensor, else on that of
+    ``queries`` if it is one, else on the card (raising where there is
+    none).
 
     ``method``, under the reference's names:
 
@@ -33,7 +35,7 @@ def linear_search(queries, db, k: int, method: str = "auto",
     The reference's ``db_t`` and ``db_rows`` (its transposed and blocked
     corpus copies) have no counterpart: the port scans the row-major
     corpus."""
-    db = as_codes(db)
+    db = as_codes(db, entry_device(None, db, queries))
     queries = as_codes(queries, db.device).contiguous()
     chunk = min(chunk, max(db.shape[0], 8))
     if method == "auto":
