@@ -13,6 +13,7 @@ from verticut_tpu.ops import hamming as jhamming
 from verticut_tpu.ops.pallas import (pallas_blockmin, pallas_blockmin_t,
                                      pallas_blockmin_t2)
 from verticut_tpu_torch import bits
+from verticut_tpu_torch.codes import pairwise_hamming
 from verticut_tpu_torch.kernels import blockmin as kb
 from verticut_tpu_torch.ops import hamming
 from verticut_tpu_torch.ops.hamming import ENGINES
@@ -155,3 +156,43 @@ def test_wrapper_rejects_bad_inputs():
         kb.blockmin(q, torch.zeros((5, 2), dtype=torch.int32), 5, 128)
     with pytest.raises(ValueError):
         kb.blockmin(q, torch.zeros((5, 4), dtype=torch.int32), 6, 128)
+
+
+def test_instance_choice():
+    """(W, block) -> instance for every shape the tests and cells use: the
+    tensor cores at 32- to 256-bit codes and power-of-two blocks 32..2048
+    (the search paths' blocks 512 and 128, the 64-bit cell's W = 2), the
+    generic CUDA-core instance elsewhere."""
+    for w in range(1, 9):
+        for block in (32, 64, 128, 256, 512, 1024, 2048):
+            assert kb.instance(w, block) == "tensor"
+    for w, block in ((4, 1), (4, 16), (4, 31), (4, 96), (4, 3000),
+                     (4, 4096), (9, 512), (16, 128), (3, 48)):
+        assert kb.instance(w, block) == "generic"
+    assert kb.INSTANCES == ("tensor", "generic")
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+def test_expanded_operands_give_hamming(w):
+    """The mirror of the tensor-core instance's operands: popcount(q) -
+    (q8 . c8) / 64 equals the Hamming distance exactly (int32 matmul), and
+    every dot is a multiple of 64; sign bits and all-zero / all-ones words
+    included."""
+    rng = np.random.default_rng(w)
+    q = rng.integers(0, 1 << 32, (33, w), dtype=np.uint32)
+    c = rng.integers(0, 1 << 32, (70, w), dtype=np.uint32)
+    q[0], q[1], c[0], c[1] = 0, 0xFFFFFFFF, 0xFFFFFFFF, 0x80000000
+    q, c = bits.as_codes(q), bits.as_codes(c)
+    q8, c8 = kb.expand_queries(q), kb.expand_codes(c)
+    assert q8.dtype == c8.dtype == torch.int8
+    assert q8.shape == (33, 32 * w) and c8.shape == (70, 32 * w)
+    assert set(q8.abs().unique().tolist()) <= {1, 2, 4, 8, 16, 32, 64}
+    assert set(c8.unique().tolist()) <= {0, 1, 2, 4, 8, 16, 32, 64}
+    dot = q8.to(torch.int32) @ c8.to(torch.int32).T
+    assert bool((dot % 64 == 0).all())
+    pop = bits.popcount32(q).sum(-1, dtype=torch.int32)
+    assert torch.equal(pop[:, None] - dot // 64, pairwise_hamming(q, c))
+    # byte 32w + 4t + j is bit t + 8j of word w: bit 8 is t 0, j 1
+    one = torch.tensor([[1 << 8]], dtype=torch.int32)
+    assert kb.expand_codes(one)[0].nonzero().flatten().tolist() == [1]
+    assert kb.expand_queries(one)[0, :4].tolist() == [-64, 64, -64, -64]

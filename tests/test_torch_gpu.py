@@ -37,27 +37,90 @@ def _codes(rng, n, w):
     return bits.as_codes(rng.integers(0, 1 << 32, (n, w), dtype=np.uint32))
 
 
+TENSOR_BLOCKS = (32, 64, 128, 256, 512, 1024, 2048)
+
+
+def _check_blockmin(q, db, n, block, want_instance):
+    before = (kb.launches, kb.launches_by_instance[want_instance])
+    got = kb.blockmin(q, db, n, block)
+    torch.cuda.synchronize()
+    assert (kb.launches, kb.launches_by_instance[want_instance]) == (
+        before[0] + 1, before[1] + 1)
+    want = kb.blockmin_reference(q, db, n, block)
+    assert int((got - want).abs().max()) == 0
+    return got
+
+
 @pytest.mark.parametrize("nq,n_rows,n", [(70, 5000, 4711), (129, 40000, 39999),
                                          (300, 1000, 0), (8192, 100000, 99999)])
 def test_kernel_matches_twin(cuda_device, nq, n_rows, n):
-    """The fast instance at each of its blocks."""
+    """The tensor-core instance at each of its blocks, 128-bit codes."""
     rng = np.random.default_rng(nq)
     q, db = _codes(rng, nq, 4), _codes(rng, n_rows, 4)
     db[5] = q[0]
     q, db = q.to(cuda_device), db.to(cuda_device)
-    for block in kb.FAST_BLOCKS:
-        before = kb.launches
-        got = kb.blockmin(q, db, n, block)
-        torch.cuda.synchronize()
-        assert kb.launches == before + 1
-        assert torch.equal(got, kb.blockmin_reference(q, db, n, block))
+    for block in TENSOR_BLOCKS:
+        assert kb.instance(4, block) == "tensor"
+        _check_blockmin(q, db, n, block, "tensor")
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("block", [1, 16, 96, 1024, 2048])
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+@pytest.mark.parametrize("block", [32, 128, 512, 2048])
+def test_tensor_instance_matches_twin(cuda_device, w, block):
+    """Exact (max abs err 0) at Q in {1, 63, 64, 129, 687}: partial query
+    tiles and warpgroups; n < n_rows, n off the block grid, and an
+    all-masked last block (rows past n only); a code equal to a query in
+    the straddling block, another past n."""
+    rng = np.random.default_rng(w * 10_000 + block)
+    n_rows = 2 * 2048 + 3 * block + 77
+    n = n_rows - block - 40                     # last block all past n
+    q_all, db = _codes(rng, 687, w), _codes(rng, n_rows, w)
+    db[n - 1] = q_all[0]
+    db[n] = q_all[1]                            # past n: excluded
+    q_all, db = q_all.to(cuda_device), db.to(cuda_device)
+    for nq in (1, 63, 64, 129, 687):
+        got = _check_blockmin(q_all[:nq].contiguous(), db, n, block, "tensor")
+        assert int(got[0, (n - 1) // block]) == 0
+        assert (got[:, -1] == 32 * w + 1).all()
+
+
+def test_tensor_instance_extremes(cuda_device):
+    """All-zero and all-ones codes and queries: dot = +-32W, distances 0
+    and 32W; a one-row corpus; Q = 8192."""
+    for w in (1, 2, 4, 8):
+        zeros = torch.zeros((3000, w), dtype=torch.int32, device=cuda_device)
+        ones = torch.full_like(zeros, -1)
+        db = torch.cat([zeros[:1500], ones[:1500]])
+        q = torch.cat([zeros[:65], ones[:65]])
+        for block in (32, 512):
+            got = _check_blockmin(q, db, 3000, block, "tensor")
+            assert set(got.unique().tolist()) == {0, 32 * w}
+        got = _check_blockmin(q, ones, 1, 128, "tensor")
+        assert got[:65, 0].eq(32 * w).all() and got[65:, 0].eq(0).all()
+        assert got[:, 1:].eq(32 * w + 1).all()
+    rng = np.random.default_rng(8192)
+    q, db = _codes(rng, 8192, 4), _codes(rng, 70_000, 4)
+    q, db = q.to(cuda_device), db.to(cuda_device)
+    for block in (128, 512):
+        _check_blockmin(q, db, 69_999, block, "tensor")
+
+
+def test_main_path_shapes_take_the_tensor_instance(cuda_device):
+    """The C side picks what kernels.blockmin.instance names: the tensor
+    cores at the search paths' shapes (W = 4, blocks 512 and 128; the
+    64-bit cell's W = 2), the generic instance elsewhere."""
+    for w, block in ((4, 512), (4, 128), (2, 512), (2, 128), (8, 512)):
+        assert kb.instance(w, block) == "tensor"
+    for w in range(1, 12):
+        for block in (1, 16, 31, 32, 96, 128, 512, 2048, 3000, 4096):
+            assert kb.kernel_instance(w, block) == kb.instance(w, block)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("block", [1, 16, 96, 4096])
 def test_generic_blockmin_matches_twin(cuda_device, w, block):
-    """Every code width and block the fast instance does not take: the
-    generic instance, with a straddling last block and rows past n."""
+    """Every code width and block the tensor-core instance does not take:
+    the generic instance, with a straddling last block and rows past n."""
     rng = np.random.default_rng(w * 10_000 + block)
     n_rows = 3 * max(block, 700) + 5
     n = n_rows - max(1, block // 3) - 2
@@ -65,11 +128,8 @@ def test_generic_blockmin_matches_twin(cuda_device, w, block):
     db[n - 1] = q[0]
     db[n] = q[1]                                # past n: excluded
     q, db = q.to(cuda_device), db.to(cuda_device)
-    before = kb.launches
-    got = kb.blockmin(q, db, n, block)
-    torch.cuda.synchronize()
-    assert kb.launches == before + 1
-    assert torch.equal(got, kb.blockmin_reference(q, db, n, block))
+    assert kb.instance(w, block) == "generic"
+    got = _check_blockmin(q, db, n, block, "generic")
     assert int(got[0, (n - 1) // block]) == 0
 
 

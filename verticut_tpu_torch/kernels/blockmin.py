@@ -7,9 +7,14 @@ such row reports ``bits + 1``.
 
 A CPU tensor takes :func:`blockmin_reference`, the plain PyTorch version.
 A CUDA tensor launches ``csrc/blockmin.cu`` or raises: there is no
-fallback. The kernel is built and loaded by :mod:`._build`. It has a fast
-instance for 128-bit codes at the blocks of :data:`FAST_BLOCKS` and a
-generic instance for every other code width and block.
+fallback. The kernel is built and loaded by :mod:`._build`. It has two
+instances, chosen by :func:`instance` from the code width and the block
+alone: a tensor-core one (an int8 ±1 GEMM on ``wgmma``) for 32- to
+256-bit codes and power-of-two blocks of 32 to 2048 rows, every shape the
+search paths use, and a generic one on the CUDA cores (XOR + popcount)
+for every other width and block. The CPU mirrors of the tensor-core
+instance's operands are on the CPU: :func:`expand_queries`,
+:func:`expand_codes`.
 
 This is the counterpart of three TPU kernels
 (``verticut_tpu/ops/pallas/linear_scan.py``): K1 ``pallas_blockmin_t2``
@@ -22,7 +27,7 @@ no caller fixes up the tail.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,16 +36,54 @@ from verticut_tpu_torch.kernels import _build
 
 NAME = "blockmin"
 SOURCE = _build.source(NAME)
-#: blocks of the fast instance (128-bit codes only): block/32 codes per
-#: lane and one warp reduction; the generic instance takes the rest
-FAST_BLOCKS: Tuple[int, ...] = (32, 64, 128, 256, 512)
+#: the kernel's instances, as :func:`instance` names them
+INSTANCES: Tuple[str, ...] = ("tensor", "generic")
 
 #: kernel launches made by :func:`blockmin`, either instance (never by the
-#: twin)
+#: twin), and the same launches by instance
 launches = 0
+launches_by_instance: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
 
 #: elements of the twin's [Q, rows, W] temporaries per corpus chunk
 _TWIN_CHUNK_ELEMS = 1 << 25
+
+
+def instance(w: int, block: int) -> str:
+    """The kernel instance that runs for ``w``-word codes and ``block``-row
+    blocks: ``"tensor"`` for 1 <= w <= 8 and a power-of-two block from 32
+    to 2048, else ``"generic"``. ``vt_blockmin_instance`` in
+    ``csrc/blockmin.cu`` makes the same choice."""
+    if 1 <= w <= 8 and 32 <= block <= 2048 and block & (block - 1) == 0:
+        return "tensor"
+    return "generic"
+
+
+def _expand(codes: torch.Tensor, query: bool) -> torch.Tensor:
+    t = torch.arange(8, device=codes.device).repeat_interleave(4)
+    bit = (t + 8 * torch.arange(4, device=codes.device).repeat(8))
+    b = (codes[..., None] >> bit.to(torch.int32)) & 1   # [..., W, 32]
+    if query:
+        v = (2 * b - 1) * torch.where(t < 7, 2 ** (6 - t), 1)
+    else:
+        v = b * torch.where(t < 7, 2 ** t, 64)
+    return v.reshape(*codes.shape[:-1], codes.shape[-1] * 32).to(torch.int8)
+
+
+def expand_queries(codes: torch.Tensor) -> torch.Tensor:
+    """``int32[..., W]`` query codes -> ``int8[..., 32W]``, the tensor-core
+    instance's A operand (``query_group`` in ``csrc/blockmin.cu``; the two
+    must stay in step): byte ``32w + 4t + j`` is ``+-2^(6-t)`` (``+-1`` for
+    t = 7), + where bit ``t + 8j`` of word ``w`` is set."""
+    return _expand(codes, True)
+
+
+def expand_codes(codes: torch.Tensor) -> torch.Tensor:
+    """``int32[..., W]`` corpus codes -> ``int8[..., 32W]``, the B operand
+    (``code_group`` in ``csrc/blockmin.cu``): byte ``32w + 4t + j`` is bit
+    ``t + 8j`` of word ``w`` times ``2^t`` (64 for t = 7). Every product
+    with :func:`expand_queries` is ``+-64 * bit``, so ``hamming(q, c) =
+    popcount(q) - (q8 . c8) / 64``."""
+    return _expand(codes, False)
 
 
 def build() -> None:
@@ -51,9 +94,18 @@ def build() -> None:
 
 def _load():
     vp = ctypes.c_void_p
-    return _build.load(NAME, {"vt_blockmin": (
-        vp, vp, vp, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_longlong, vp)})
+    return _build.load(NAME, {
+        "vt_blockmin": (vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                        vp),
+        "vt_blockmin_instance": (ctypes.c_int, ctypes.c_longlong)})
+
+
+def kernel_instance(w: int, block: int) -> str:
+    """The instance the built kernel picks for ``(w, block)``: the C side
+    of :func:`instance`, for the tests on the card."""
+    return INSTANCES[0] if _load().vt_blockmin_instance(w, block) else \
+        INSTANCES[1]
 
 
 def _check(queries: torch.Tensor, db: torch.Tensor, n: int, block: int):
@@ -111,4 +163,5 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
                               queries.shape[1], block, stream)
     _build.check_launch(lib, err, "blockmin")
     launches += 1
+    launches_by_instance[instance(queries.shape[1], block)] += 1
     return out
