@@ -7,13 +7,19 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure exits non-zero and prints no result):
   1. torch / CUDA versions, the card's name and power limit, CUDA_HOME;
   2. build the kernels from verticut_tpu_torch/csrc, one nvcc per source,
-     all started together;
+     all started together, and print ptxas's registers, spills and wgmma
+     serialisation warnings;
   3. each kernel == its plain twin, with both times, at the shapes the
-     paths give it: blockmin at Q = 8192 queries, N = 1M codes, blocks 512
-     and 128, on the corpus as it is and padded to a multiple of
-     128 * block as the reference's row-major kernel takes it; pairwise at
-     Q = 8192, N = 131072; the generic instances: blockmin at blocks 16,
-     1024 and 2048, and both kernels at 64- and 256-bit codes;
+     paths give it: blockmin's tensor-core instance at Q = 8192 and at
+     Q = 128 (the straggler tier), N = 1M codes, blocks 512 and 128, on the
+     corpus as it is and padded to a multiple of 128 * block as the
+     reference's row-major kernel takes it, each time beside its int8
+     tensor-core bound and share, and at Q = 687 and 768 (a 100M query
+     slice and its padded tile); pairwise at Q = 8192, N = 131072, beside
+     its store bound and one torch.cdist call; blockmin at blocks 16 and
+     1000 (the generic instance) and 1024 and 2048, and both kernels at
+     64- and 256-bit codes (blockmin's tensor-core instance at W = 2 and
+     W = 8);
   4. the main path as bench.py drives it: 1M clustered 128-bit codes,
      m = 4 tables, 8192 perturbed queries at k = 10 and k = 100, then 8192
      uniform queries at k = 10; each cell checked against the popcount
@@ -31,7 +37,7 @@ Phases (any failure exits non-zero and prints no result):
   8. dispatch / finalize at 1M: two handles in flight, finalized out of
      order, equal to mih_search on every row;
   9. a 64-bit index (MIHConfig(bits=64, n_tables=2), 1M codes) under 8192
-     uniform queries: all scan tier (the generic blockmin instance),
+     uniform queries: all scan tier (the tensor-core instance at W = 2),
      oracle-equal on 256;
  10. the oracle drive at 1M, k = 500 and 1000 (verticut_tpu_torch.
      oracle_drive);
@@ -42,15 +48,18 @@ Phases (any failure exits non-zero and prints no result):
      popcount oracle on 64 queries (dists and ids) and on every returned
      id's true distance; the radius steps must take the wide-id (_pos)
      selections and the result row the [Q, 2k + 3] layout.
-Phases 4 to 11 each set the kernels' launch counts to 0 before they run
-and read them after. The line before the last is a JSON record of the
-kernels; the last line is {"ok": true, "device": {...}}.
+Phases 4 to 11 each set the kernels' launch counts (blockmin's also by
+instance) to 0 before they run and read them after; the main path's
+(phases 4 and 11) must go through the tensor-core instance. The line
+before the last is a JSON record of the kernels; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +72,9 @@ N_MAIN = 1_000_000
 N_SCALE = 100_000_000
 N_PAIRWISE = 131_072
 N_SCALE_ORACLE = 64
+#: an H100 SXM's dense int8 tensor-core rate (ops/s) and memory rate (B/s)
+H100_INT8_OPS = 1979e12
+H100_BYTES = 3.35e12
 
 
 def log(*args):
@@ -74,10 +86,27 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def kernel_vs_twin(torch, name, kernel, twin, args):
+def zero_counts(kb, kp):
+    kb.launches = kp.launches = 0
+    kb.launches_by_instance.update(dict.fromkeys(kb.INSTANCES, 0))
+
+
+def blockmin_bound(nq, n, n_rows, w, block):
+    """The least time of a blockmin call over ``n`` valid rows of
+    ``n_rows``, ms: its 2 * Q * n * 32W int8 tensor-core operations or its
+    bytes (the queries and valid rows read once, the output written once),
+    whichever takes longer; and which it is."""
+    ops = 2 * nq * n * 32 * w / H100_INT8_OPS * 1e3
+    nbytes = 4 * (nq * w + n * w + nq * -(-n_rows // block))
+    by_bytes = nbytes / H100_BYTES * 1e3
+    return (ops, "operations") if ops >= by_bytes else (by_bytes, "bytes")
+
+
+def kernel_vs_twin(torch, name, kernel, twin, args, bound=None):
     """Exact comparison of ``kernel(*args)`` and ``twin(*args)``; returns
     (max_abs_err, kernel ms averaged over 10 launches after a warm-up,
-    twin ms of one call)."""
+    twin ms of one call). ``bound``: the least time in ms, printed with
+    the kernel's share of it."""
     got = kernel(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -98,17 +127,20 @@ def kernel_vs_twin(torch, name, kernel, twin, args):
     e1.record()
     torch.cuda.synchronize()
     ms = e0.elapsed_time(e1) / 10
-    log(f"{name}: kernel == twin (max abs err {err}); kernel {ms:.3f} ms, "
-        f"twin {plain_ms:.1f} ms")
+    share = f", bound {bound:.4f} ms, share {bound / ms:.1%}" if bound else ""
+    log(f"{name}: kernel == twin (max abs err {err}); kernel {ms:.4f} ms"
+        f"{share}, twin {plain_ms:.1f} ms")
     return err, ms, plain_ms
 
 
 def blockmin_vs_twin(torch, kb, queries, db, block, n=None):
     n = db.shape[0] if n is None else n
+    nq, w = queries.shape
     return kernel_vs_twin(
-        torch, f"blockmin Q={queries.shape[0]} N={n} rows={db.shape[0]} "
-        f"W={db.shape[1]} block={block}", kb.blockmin, kb.blockmin_reference,
-        (queries, db, n, block))
+        torch, f"blockmin ({kb.instance(w, block)}) Q={nq} N={n} "
+        f"rows={db.shape[0]} W={w} block={block}", kb.blockmin,
+        kb.blockmin_reference, (queries, db, n, block),
+        bound=blockmin_bound(nq, n, db.shape[0], w, block)[0])
 
 
 def padded(torch, db, unit):
@@ -282,28 +314,84 @@ def approx_phase(torch, kb, index, q_dev, scfg):
 
 
 def generic_phase(torch, kb, kp, u_dev, db, dev):
-    """Phase 3, second half: the generic instances where the fast ones do
-    not run: blockmin at blocks 16, 1024 and 2048 on the 1M corpus, and
-    both kernels at 64- and 256-bit codes. Returns the largest error and
-    the runs of blockmin at block 1024 (W = 4, beside the fast block 512)
-    and of pairwise at 64-bit codes (beside the fast 128-bit one), each
-    ``(err, ms, plain_ms)``."""
+    """Phase 3, second half: blockmin at blocks 16 and 1000 (the generic
+    instance) and 1024 and 2048 (tensor cores) on the 1M corpus, and both
+    kernels at 64- and 256-bit codes (blockmin's tensor-core instance at
+    W = 2 and 8, pairwise's generic one). Returns the largest error, the
+    generic blockmin's run at block 1000 (W = 4, beside the main path's
+    block 512), pairwise's at 64-bit codes (beside the fast 128-bit one)
+    and blockmin's at W = 2 (the 64-bit cell's shape), each ``(err, ms,
+    plain_ms)``."""
     from verticut_tpu_torch import bits, codes
     blocks = {b: blockmin_vs_twin(torch, kb, u_dev, db, b)
-              for b in (16, 1024, 2048)}
+              for b in (16, 1000, 1024, 2048)}
+    check(kb.instance(4, 1000) == "generic"
+          and kb.instance(4, 1024) == "tensor", "blockmin instance choice")
     err = max(c[0] for c in blocks.values())
-    pw = {}
+    pw, bm = {}, {}
     for bits_w, n in ((64, N_MAIN), (256, 262_144)):
         q = bits.as_codes(codes.random_codes(6, Q, bits_w), dev)
         d = bits.as_codes(codes.random_codes(5, n, bits_w), dev)
         pw[bits_w] = kernel_vs_twin(
             torch, f"pairwise Q={Q} N={N_PAIRWISE} W={bits_w // 32}",
-            kp.pairwise, kp.pairwise_reference, (q, d[:N_PAIRWISE]))
-        err = max(err, blockmin_vs_twin(torch, kb, q, d, 512)[0],
-                  pw[bits_w][0])
+            kp.pairwise, kp.pairwise_reference, (q, d[:N_PAIRWISE]),
+            bound=pairwise_bound(Q, N_PAIRWISE, bits_w // 32))
+        bm[bits_w] = blockmin_vs_twin(torch, kb, q, d, 512)
+        err = max(err, bm[bits_w][0], pw[bits_w][0])
         del q, d
     torch.cuda.empty_cache()
-    return err, blocks[1024], pw[64]
+    return err, blocks[1000], pw[64], bm[64]
+
+
+def pairwise_bound(nq, n, w):
+    """The least time of a pairwise call, ms: its int32 [Q, N] output
+    written once and its inputs read once, at the memory rate."""
+    return 4 * (nq * n + (nq + n) * w) / H100_BYTES * 1e3
+
+
+def cdist_ms(torch, q, db, want):
+    """One torch.cdist(p=0) call on 0/1 float bits (the library call for
+    the pairwise function), ms over 3 calls after a warm-up; its counts
+    must equal the kernel's ``want``."""
+    from verticut_tpu_torch import codes
+    a = (codes.unpack_bits_pm1(q) + 1) / 2
+    b = (codes.unpack_bits_pm1(db) + 1) / 2
+    got = torch.cdist(a, b, p=0)
+    check(torch.equal(got.to(torch.int32), want), "cdist(p=0) != pairwise")
+    del got
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        torch.cdist(a, b, p=0)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / 3
+
+
+def tensor_phase(torch, kb, u_dev, db):
+    """Phase 3, first half: the tensor-core instance at the main path's
+    shapes, against the twin, each time beside its bound: Q = 8192 and
+    128, blocks 512 and 128, the corpus as it is and padded to 128 *
+    block rows; then Q = 687 and 768 at block 512. Returns the largest
+    error and ``{(Q, block, padded): (err, ms, plain_ms)}``."""
+    runs = {}
+    for nq in (Q, 128):
+        q = u_dev[:nq].contiguous()
+        for block in (512, 128):
+            runs[nq, block, False] = blockmin_vs_twin(torch, kb, q, db, block)
+            runs[nq, block, True] = blockmin_vs_twin(   # K3's operand
+                torch, kb, q, padded(torch, db, 128 * block), block,
+                n=N_MAIN)
+    for nq in (687, 768):         # a 100M query slice and its padded tile
+        runs[nq, 512, False] = blockmin_vs_twin(
+            torch, kb, u_dev[:nq].contiguous(), db, 512)
+    log(f"blockmin tensor cores: Q=128 per-query time "
+        f"{runs[128, 512, False][1] / 128 * Q / runs[Q, 512, False][1]:.2f}"
+        f"x the Q={Q} one (block 512); Q=687 takes "
+        f"{runs[687, 512, False][1] / runs[768, 512, False][1]:.1%} of "
+        f"Q=768's time for {687 / 768:.1%} of its queries")
+    return max(r[0] for r in runs.values()), runs
 
 
 def dispatch_phase(torch, index, q_dev, scfg):
@@ -337,7 +425,8 @@ def dispatch_phase(torch, index, q_dev, scfg):
 
 def narrow_phase(torch, kb, dev, scfg):
     """Phase 9: a 64-bit index under uniform queries: the whole batch
-    takes the scan tier, which runs the generic blockmin instance."""
+    takes the scan tier, which runs the tensor-core blockmin instance at
+    W = 2."""
     from verticut_tpu_torch import bits, codes
     from verticut_tpu_torch.config import MIHConfig
     from verticut_tpu_torch.index import build_index
@@ -347,9 +436,12 @@ def narrow_phase(torch, kb, dev, scfg):
     index = build_index(packed, cfg, device=dev)
     u = bits.as_codes(codes.random_codes(98, Q, 64), dev)
     kb.launches = 0
+    kb.launches_by_instance.update(dict.fromkeys(kb.INSTANCES, 0))
     launches, res = run_cell(torch, "1M 64-bit (m=2) uniform k=10", index, u,
                              scfg, 256, kb)
     check(launches > 0, "the 64-bit cell launched no blockmin kernel")
+    check(kb.launches_by_instance["generic"] == 0,
+          "the 64-bit cell launched the generic blockmin instance")
     check(bool((res.radius == 1).all()),
           "the 64-bit uniform cell did not resolve in the scan tier")
     return launches
@@ -462,9 +554,16 @@ def main() -> int:
     log(f"kernels built for sm_90a in {time.perf_counter() - t0:.2f} s")
     for m in (kb, kp):
         log(f"  {os.path.relpath(m.SOURCE)}")
-        for line in _build.build_logs.get(m.NAME, "").splitlines():
+        text = _build.build_logs.get(m.NAME, "")
+        for line in text.splitlines():
             if "registers" in line:
                 log("    " + line.strip())
+        # ptxas's spills, and its warning that it serialised a kernel's
+        # wgmma instructions
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                text))
+        log(f"    spill stores {spills} bytes; wgmma serialisation warnings "
+            f"{text.count('mma_async instructions are serialized')}")
 
     # 3. kernels vs twins at the paths' shapes
     packed = codes.clustered_codes(0, N_MAIN, 128, n_clusters=N_MAIN // 200,
@@ -472,23 +571,25 @@ def main() -> int:
     db = bits.as_codes(packed, dev)
     q_dev = perturbed_queries(np.random.default_rng(0), db, Q)
     u_dev = bits.as_codes(codes.random_codes(99, Q, 128), dev)
-    cmp = {b: blockmin_vs_twin(torch, kb, u_dev, db, b) for b in (512, 128)}
-    max_err = {"blockmin": max(c[0] for c in cmp.values())}
-    for b in (512, 128):      # K3's operand: rows past n are pad
-        err = blockmin_vs_twin(torch, kb, u_dev, padded(torch, db, 128 * b),
-                               b, n=N_MAIN)[0]
-        max_err["blockmin"] = max(max_err["blockmin"], err)
+    err, tc = tensor_phase(torch, kb, u_dev, db)
+    max_err = {"blockmin": err}
     pw = kernel_vs_twin(torch, f"pairwise Q={Q} N={N_PAIRWISE}", kp.pairwise,
-                        kp.pairwise_reference, (u_dev, db[:N_PAIRWISE]))
+                        kp.pairwise_reference, (u_dev, db[:N_PAIRWISE]),
+                        bound=pairwise_bound(Q, N_PAIRWISE, 4))
     max_err["pairwise"] = pw[0]
-    err, gen_bm, gen_pw = generic_phase(torch, kb, kp, u_dev, db, dev)
+    pw_lib = cdist_ms(torch, u_dev, db[:N_PAIRWISE],
+                      kp.pairwise(u_dev, db[:N_PAIRWISE]))
+    log(f"torch.cdist(p=0) on 0/1 float bits, Q={Q} N={N_PAIRWISE}: "
+        f"{pw_lib:.3f} ms (equal to the pairwise kernel)")
+    torch.cuda.empty_cache()
+    err, gen_bm, gen_pw, w2_bm = generic_phase(torch, kb, kp, u_dev, db, dev)
     max_err = {k: max(v, err) for k, v in max_err.items()}
 
     # 4. the main path, counted
     cfg = MIHConfig(bits=128, n_tables=4)
     k10 = SearchConfig(knn=10, candidate_cap=8192, max_enum_radius=5)
     k100 = SearchConfig(knn=100, candidate_cap=8192, max_enum_radius=5)
-    kb.launches = kp.launches = 0
+    zero_counts(kb, kp)
     t0 = time.perf_counter()
     index = build_index(packed, cfg, device=dev)
     torch.cuda.synchronize()
@@ -499,8 +600,11 @@ def main() -> int:
     uniform, _ = run_cell(torch, "1M uniform k=10", index, u_dev, k10, 256,
                           kb)
     main_launches = kb.launches
+    main_by_instance = dict(kb.launches_by_instance)
+    log(f"main path blockmin launches by instance: {main_by_instance}")
     check(uniform > 0, "the uniform cell launched no blockmin kernel")
-    check(main_launches > 0, "the main path launched no blockmin kernel")
+    check(main_by_instance["tensor"] > 0,
+          "the main path launched no tensor-core blockmin kernel")
 
     # 5.-8. the linear-scan methods, the loop driver, approximate mode,
     # dispatch / finalize
@@ -511,7 +615,7 @@ def main() -> int:
     del index, q_dev, u_dev, db
     torch.cuda.empty_cache()
 
-    # 9. a 64-bit index: the generic instance on the scan tier
+    # 9. a 64-bit index: the tensor-core instance at W = 2 on the scan tier
     narrow_phase(torch, kb, dev, k10)
     torch.cuda.empty_cache()
 
@@ -525,25 +629,41 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. scale
+    zero_counts(kb, kp)
     scale_launches = scale_phase(torch, kb, dev, k10, k100)
-    check(scale_launches > 0, "the 100M phase launched no blockmin kernel")
+    scale_by_instance = dict(kb.launches_by_instance)
+    log(f"100M phase blockmin launches by instance: {scale_by_instance}")
+    check(scale_by_instance["tensor"] > 0,
+          "the 100M phase launched no tensor-core blockmin kernel")
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
+    bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
     print(json.dumps({"kernels": [
         {"name": "blockmin", "route": "cuda",
          "source": "verticut_tpu_torch/csrc/blockmin.cu",
-         "replaces": f"{src}:106,295,346",
-         "launches": main_launches, "scale_launches": scale_launches,
+         "replaces": f"{src}:106,295,346", "instance": kb.instance(4, 512),
+         "launches": main_launches, "launches_by_instance": main_by_instance,
+         "scale_launches": scale_launches,
+         "scale_launches_by_instance": scale_by_instance,
          "max_abs_err": max_err["blockmin"],
-         "ms": cmp[512][1], "plain_ms": cmp[512][2],
+         "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
+         "bound_ms": bm_bound, "bound_by": bm_by,
+         "bound_what": "int8 tensor cores", "library_ms": None,
          "shape": f"Q={Q} N={N_MAIN} W=4 block=512",
+         "block128_ms": tc[Q, 128, False][1],
+         "q128_ms": tc[128, 512, False][1],
+         "q128_bound_ms": blockmin_bound(128, N_MAIN, N_MAIN, 4, 512)[0],
+         "w2_ms": w2_bm[1],
+         "w2_bound_ms": blockmin_bound(Q, N_MAIN, N_MAIN, 2, 512)[0],
          "generic_ms": gen_bm[1], "generic_plain_ms": gen_bm[2],
-         "generic_shape": f"Q={Q} N={N_MAIN} W=4 block=1024"},
+         "generic_shape": f"Q={Q} N={N_MAIN} W=4 block=1000"},
         {"name": "pairwise", "route": "cuda",
          "source": "verticut_tpu_torch/csrc/pairwise.cu",
-         "replaces": f"{src}:419",
+         "replaces": f"{src}:419", "instance": "fast",
          "launches": linear["pairwise"], "max_abs_err": max_err["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
+         "bound_ms": pairwise_bound(Q, N_PAIRWISE, 4), "bound_by": "bytes",
+         "bound_what": "device-memory stores", "library_ms": pw_lib,
          "shape": f"Q={Q} N={N_PAIRWISE} W=4",
          "generic_ms": gen_pw[1], "generic_plain_ms": gen_pw[2],
          "generic_shape": f"Q={Q} N={N_PAIRWISE} W=2"}]}),

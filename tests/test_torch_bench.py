@@ -1,7 +1,8 @@
-"""The port's benchmark and oracle drive (verticut_tpu_torch.bench,
-verticut_tpu_torch.oracle_drive) at a small size on the CPU: their cell
-functions run end to end and every oracle check passes; their queries are
-the reference bench's; their entry points refuse to run without CUDA."""
+"""The port's benchmark, oracle drive and time breakdown
+(verticut_tpu_torch.bench, .oracle_drive, .breakdown) at a small size on
+the CPU: their cell functions run end to end and every oracle check
+passes; their queries are the reference bench's; their entry points
+refuse to run without CUDA."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from verticut_tpu import codes as jcodes
-from verticut_tpu_torch import bench, bits, oracle_drive
+from verticut_tpu_torch import bench, bits, breakdown, oracle_drive
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -78,9 +79,28 @@ def test_oracle_drive_cells_pass_on_cpu():
     assert all(c["ok"] for c in cells), cells
 
 
+def test_breakdown_cell_on_cpu():
+    """One profiled batch beside three unprofiled ones; on the CPU the
+    profile holds no device interval, so device time is None."""
+    from verticut_tpu_torch.config import SearchConfig
+    index, _ = bench.make_index(3000, CPU)
+    q = bench.perturbed_queries(np.random.default_rng(2), index.codes, 64)
+    rec = breakdown.profile_cell(index, q, SearchConfig())
+    assert len(rec["walls_s"]) == 3 and rec["wall_s"] > 0
+    assert rec["device_s"] is None and rec["idle"] is None
+    assert rec["kernels"] == 0 and rec["top"] == []
+    assert rec["blockmin"] == {"tensor": 0, "generic": 0}
+
+
+def test_union_of_intervals():
+    assert breakdown._union([]) == 0
+    assert breakdown._union([(5, 7), (0, 2), (1, 3), (6, 9), (9, 9)]) == 7
+
+
 @pytest.mark.parametrize("module", ["verticut_tpu_torch.bench",
                                     "verticut_tpu_torch.oracle_drive",
-                                    "chip_smoke"])
+                                    "chip_smoke",
+                                    "verticut_tpu_torch.breakdown"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-m", module], cwd=ROOT, env=env,

@@ -222,7 +222,8 @@ def test_unported_options_raise():
 @pytest.mark.parametrize("bits_w,n_tables", [(64, 2), (256, 8)])
 def test_code_widths_match_jax(bits_w, n_tables):
     """64- and 256-bit codes under uniform queries: stage 0, then the scan
-    tier for the whole batch (the kernels' generic instances on a card).
+    tier for the whole batch (on a card, blockmin's tensor-core instance
+    at W = 2 and 8).
     At 256 bits both packages take the wide-id selections at any n."""
     packed = jcodes.clustered_codes(1, 20_000, bits_w, n_clusters=100,
                                     flip_p=0.02)
