@@ -555,14 +555,17 @@ def main() -> int:
     for m in (kb, kp):
         log(f"  {os.path.relpath(m.SOURCE)}")
         text = _build.build_logs.get(m.NAME, "")
-        for line in text.splitlines():
-            if "registers" in line:
-                log("    " + line.strip())
-        # ptxas's spills, and its warning that it serialised a kernel's
-        # wgmma instructions
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
-                                                text))
-        log(f"    spill stores {spills} bytes; wgmma serialisation warnings "
+        for fn, spill, regs in re.findall(
+                r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers",
+                text):
+            tc = re.search(r"tc_kernelILi(\d+)ELi(\d+)E", fn)
+            name = (f"tensor-core W={tc[1]} BT={tc[2]}" if tc else
+                    re.sub(r"^_Z\w*?\d+(?=[a-z_]+_kernel)|(?<=_kernel)\w*$",
+                           "", fn))
+            log(f"    {name}: {regs} registers, {spill} bytes spill stores")
+        # ptxas's warning that it serialised a kernel's wgmma instructions
+        log(f"    wgmma serialisation warnings: "
             f"{text.count('mma_async instructions are serialized')}")
 
     # 3. kernels vs twins at the paths' shapes

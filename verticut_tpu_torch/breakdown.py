@@ -46,9 +46,8 @@ TOP = 10
 
 
 def _short(name: str) -> str:
-    name = name.removeprefix("void ")
-    return name.split("(", 1)[0][:100] if not name.startswith("(") else \
-        name[:100]
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0][:100]
 
 
 def _union(intervals) -> float:
