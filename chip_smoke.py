@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result):
      its store bound and one torch.cdist call; blockmin at blocks 16 and
      1000 (the generic instance) and 1024 and 2048, and both kernels at
      64- and 256-bit codes (blockmin's tensor-core instance at W = 2 and
-     W = 8);
+     W = 8), and every template instance of the tensor-core kernel (W = 1
+     to 8 at blocks 32, 64 and 1024) on a ragged corpus at Q = 129;
   4. the main path as bench.py drives it: 1M clustered 128-bit codes,
      m = 4 tables, 8192 perturbed queries at k = 10 and k = 100, then 8192
      uniform queries at k = 10; each cell checked against the popcount
@@ -343,6 +344,36 @@ def generic_phase(torch, kb, kp, u_dev, db, dev):
     return err, blocks[1000], pw[64], bm[64]
 
 
+def instances_phase(torch, kb, dev):
+    """Phase 3, last: every template instance of the tensor-core kernel
+    (W = 1..8 by a block's share of a tile, 32, 64 or 128 rows) against
+    the twin, exact, at Q = 129 on a corpus whose last block lies past n.
+    Returns the largest error."""
+    from verticut_tpu_torch import bits
+    rng = np.random.default_rng(129)
+    err = 0
+    for w in range(1, 9):
+        for block in (32, 64, 1024):
+            check(kb.instance(w, block) == "tensor",
+                  f"blockmin W={w} block={block}: not the tensor-core instance")
+            n_rows = 2 * 2048 + 3 * block + 77
+            n = n_rows - block - 40
+            q = bits.as_codes(rng.integers(0, 1 << 32, (129, w),
+                                           dtype=np.uint32), dev)
+            db = bits.as_codes(rng.integers(0, 1 << 32, (n_rows, w),
+                                            dtype=np.uint32), dev)
+            db[n - 1] = q[0]
+            got = kb.blockmin(q, db, n, block)
+            want = kb.blockmin_reference(q, db, n, block)
+            e = int((got - want).abs().max())
+            check(e == 0, f"blockmin W={w} block={block} Q=129 N={n}: kernel "
+                  f"!= twin, max abs err {e}")
+            err = max(err, e)
+    log("blockmin tensor cores, every instance (W = 1..8, blocks 32, 64, "
+        "1024; Q=129, ragged n): kernel == twin (max abs err 0)")
+    return err
+
+
 def pairwise_bound(nq, n, w):
     """The least time of a pairwise call, ms: its int32 [Q, N] output
     written once and its inputs read once, at the memory rate."""
@@ -423,7 +454,7 @@ def dispatch_phase(torch, index, q_dev, scfg):
         f"rows; packed row {tuple(h1.packed.shape)}")
 
 
-def narrow_phase(torch, kb, dev, scfg):
+def narrow_phase(torch, kb, kp, dev, scfg):
     """Phase 9: a 64-bit index under uniform queries: the whole batch
     takes the scan tier, which runs the tensor-core blockmin instance at
     W = 2."""
@@ -435,8 +466,7 @@ def narrow_phase(torch, kb, dev, scfg):
                                    flip_p=0.02)
     index = build_index(packed, cfg, device=dev)
     u = bits.as_codes(codes.random_codes(98, Q, 64), dev)
-    kb.launches = 0
-    kb.launches_by_instance.update(dict.fromkeys(kb.INSTANCES, 0))
+    zero_counts(kb, kp)
     launches, res = run_cell(torch, "1M 64-bit (m=2) uniform k=10", index, u,
                              scfg, 256, kb)
     check(launches > 0, "the 64-bit cell launched no blockmin kernel")
@@ -587,6 +617,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     err, gen_bm, gen_pw, w2_bm = generic_phase(torch, kb, kp, u_dev, db, dev)
     max_err = {k: max(v, err) for k, v in max_err.items()}
+    max_err["blockmin"] = max(max_err["blockmin"],
+                              instances_phase(torch, kb, dev))
 
     # 4. the main path, counted
     cfg = MIHConfig(bits=128, n_tables=4)
@@ -619,7 +651,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. a 64-bit index: the tensor-core instance at W = 2 on the scan tier
-    narrow_phase(torch, kb, dev, k10)
+    narrow_phase(torch, kb, kp, dev, k10)
     torch.cuda.empty_cache()
 
     # 10. the oracle drive at wide k

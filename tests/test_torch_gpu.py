@@ -64,13 +64,14 @@ def test_kernel_matches_twin(cuda_device, nq, n_rows, n):
         _check_blockmin(q, db, n, block, "tensor")
 
 
-@pytest.mark.parametrize("w", [1, 2, 4, 8])
-@pytest.mark.parametrize("block", [32, 128, 512, 2048])
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("block", [32, 64, 128, 512, 1024, 2048])
 def test_tensor_instance_matches_twin(cuda_device, w, block):
-    """Exact (max abs err 0) at Q in {1, 63, 64, 129, 687}: partial query
-    tiles and warpgroups; n < n_rows, n off the block grid, and an
-    all-masked last block (rows past n only); a code equal to a query in
-    the straddling block, another past n."""
+    """Every template instance of the tensor-core kernel (W = 1..8 by
+    tile share 32, 64 and 128 rows), exact (max abs err 0) at Q in {1, 63,
+    64, 129, 687}: partial query tiles and warpgroups; n < n_rows, n off
+    the block grid, and an all-masked last block (rows past n only); a code
+    equal to a query in the straddling block, another past n."""
     rng = np.random.default_rng(w * 10_000 + block)
     n_rows = 2 * 2048 + 3 * block + 77
     n = n_rows - block - 40                     # last block all past n
@@ -106,14 +107,21 @@ def test_tensor_instance_extremes(cuda_device):
 
 
 def test_main_path_shapes_take_the_tensor_instance(cuda_device):
-    """The C side picks what kernels.blockmin.instance names: the tensor
-    cores at the search paths' shapes (W = 4, blocks 512 and 128; the
-    64-bit cell's W = 2), the generic instance elsewhere."""
-    for w, block in ((4, 512), (4, 128), (2, 512), (2, 128), (8, 512)):
-        assert kb.instance(w, block) == "tensor"
-    for w in range(1, 12):
-        for block in (1, 16, 31, 32, 96, 128, 512, 2048, 3000, 4096):
-            assert kb.kernel_instance(w, block) == kb.instance(w, block)
+    """The search paths' shapes (W = 4, blocks 512 and 128; the 64-bit
+    cell's W = 2) launch the tensor-core instance, and the C entry refuses
+    it for a shape it does not take."""
+    rng = np.random.default_rng(4)
+    for w, block in ((4, 512), (4, 128), (2, 512), (2, 128)):
+        q, db = _codes(rng, 300, w), _codes(rng, 20_000, w)
+        _check_blockmin(q.to(cuda_device), db.to(cuda_device), 19_999, block,
+                        "tensor")
+    q, db = _codes(rng, 3, 9).to(cuda_device), _codes(rng, 100, 9).to(
+        cuda_device)
+    out = torch.empty((3, 1), dtype=torch.int32, device=cuda_device)
+    err = kb._load().vt_blockmin(q.data_ptr(), db.data_ptr(), out.data_ptr(),
+                                 3, 100, 100, 9, 128, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 9])

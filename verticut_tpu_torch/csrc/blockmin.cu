@@ -17,7 +17,10 @@
 // recomputed outside the kernel. Rows past n are excluded here, which is
 // K3's contract, so callers need no tail fix-up.
 //
-// Two instances, chosen by (W, block) alone (tc_instance below):
+// Two instances. The caller names the one to run
+// (verticut_tpu_torch/kernels/blockmin.py:instance, a function of W and
+// the block alone); vt_blockmin refuses the tensor-core instance for a
+// shape it cannot take (tc_fits below):
 //
 // * the tensor-core instance, W = 1..8 and power-of-two blocks 32..2048
 //   (every shape of the search paths). It computes what the TPU kernels
@@ -459,8 +462,8 @@ cudaError_t launch_tensor(const void* queries, const void* db, void* out,
   }
 }
 
-// The instance of (W, block): 1 the tensor-core one, 0 the generic one.
-int tc_instance(int w, long long block) {
+// Whether the tensor-core instance takes (W, block).
+bool tc_fits(int w, long long block) {
   return w >= 1 && w <= kTcMaxWords && block >= 32 && block <= kTcMaxBlock &&
          (block & (block - 1)) == 0;
 }
@@ -595,10 +598,10 @@ cudaError_t launch_generic(const void* queries, const void* db, void* out,
 
 // Plain C entry for ctypes. queries int32[n_queries, w], db int32[n_rows, w]
 // (n <= n_rows valid rows), out int32[n_queries, ceil(n_rows / block)]; all
-// contiguous on the current device. vt_blockmin_instance(w, block) names
-// the instance that runs (1 tensor cores, 0 generic). Launches on `stream`
-// without synchronising and returns the launch's cudaError_t (0 =
-// success).
+// contiguous on the current device. `tensor` = 1 runs the tensor-core
+// instance (cudaErrorInvalidValue for a shape it does not take), 0 the
+// generic one. Launches on `stream` without synchronising and returns the
+// launch's cudaError_t (0 = success).
 //
 // The grids: the tensor-core instance launches at most as many CTAs as fit
 // the card, each walking (128-query tile, 2048-row chunk) items; the wide
@@ -606,18 +609,16 @@ cudaError_t launch_generic(const void* queries, const void* db, void* out,
 // ceil(nb / (threads / g)) x ceil(Q/64). nb must stay under 2^31 for the
 // wide one: at block 32 that is 68.7G rows; the narrow one takes block 1
 // at any n under 2^31 * 8.
-extern "C" int vt_blockmin_instance(int w, long long block) {
-  return tc_instance(w, block);
-}
-
 extern "C" int vt_blockmin(const void* queries, const void* db, void* out,
                            int n_queries, long long n, long long n_rows,
-                           int w, long long block, void* stream) {
-  if (w <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
+                           int w, long long block, int tensor,
+                           void* stream) {
+  if (w <= 0 || block <= 0 || (tensor && !tc_fits(w, block)))
+    return (int)cudaErrorInvalidValue;
   const long long nb = (n_rows + block - 1) / block;
   if (n_queries <= 0 || nb <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tc_instance(w, block))
+  if (tensor)
     return (int)launch_tensor(queries, db, out, n_queries, n, nb, w, block,
                               s);
   if ((block >= 32 && nb > 0x7fffffffLL) ||

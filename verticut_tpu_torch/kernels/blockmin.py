@@ -51,8 +51,9 @@ _TWIN_CHUNK_ELEMS = 1 << 25
 def instance(w: int, block: int) -> str:
     """The kernel instance that runs for ``w``-word codes and ``block``-row
     blocks: ``"tensor"`` for 1 <= w <= 8 and a power-of-two block from 32
-    to 2048, else ``"generic"``. ``vt_blockmin_instance`` in
-    ``csrc/blockmin.cu`` makes the same choice."""
+    to 2048, else ``"generic"``. :func:`blockmin` passes the choice to
+    ``vt_blockmin``, which refuses the tensor-core instance for a shape it
+    does not take."""
     if 1 <= w <= 8 and 32 <= block <= 2048 and block & (block - 1) == 0:
         return "tensor"
     return "generic"
@@ -97,15 +98,7 @@ def _load():
     return _build.load(NAME, {
         "vt_blockmin": (vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        vp),
-        "vt_blockmin_instance": (ctypes.c_int, ctypes.c_longlong)})
-
-
-def kernel_instance(w: int, block: int) -> str:
-    """The instance the built kernel picks for ``(w, block)``: the C side
-    of :func:`instance`, for the tests on the card."""
-    return INSTANCES[0] if _load().vt_blockmin_instance(w, block) else \
-        INSTANCES[1]
+                        ctypes.c_int, vp)})
 
 
 def _check(queries: torch.Tensor, db: torch.Tensor, n: int, block: int):
@@ -151,7 +144,8 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
     _build.check_kernel_operands(NAME, queries, db)
     global launches
     lib = _load()
-    nq = queries.shape[0]
+    nq, w = queries.shape
+    which = instance(w, block)
     out = torch.empty((nq, -(-db.shape[0] // block)), dtype=torch.int32,
                       device=queries.device)
     if out.numel() == 0:
@@ -159,9 +153,9 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vt_blockmin(queries.data_ptr(), db.data_ptr(),
-                              out.data_ptr(), nq, n, db.shape[0],
-                              queries.shape[1], block, stream)
+                              out.data_ptr(), nq, n, db.shape[0], w, block,
+                              which == "tensor", stream)
     _build.check_launch(lib, err, "blockmin")
     launches += 1
-    launches_by_instance[instance(queries.shape[1], block)] += 1
+    launches_by_instance[which] += 1
     return out
