@@ -48,16 +48,36 @@ Phases (any failure exits non-zero and prints no result):
      depth-4 dispatch / finalize pipeline, each checked against the
      popcount oracle on 64 queries (dists and ids) and on every returned
      id's true distance; the radius steps must take the wide-id (_pos)
-     selections and the result row the [Q, 2k + 3] layout.
-Phases 4 to 11 each set the kernels' launch counts (blockmin's also by
+     selections and the result row the [Q, 2k + 3] layout, and every
+     blockmin launch the whole batch of its scan (the folded selection:
+     full-batch corpus chunks, not query slices);
+ 12. the bucket directories at 1M codes, 8192 perturbed queries, k = 10:
+     MIHConfig(bits=128, n_tables=8) with default arguments (auto picks
+     the dense directory at 16-bit substrings), without and with the
+     bitmap, and n_tables=4 with the sorted, prefix and hash directories,
+     each through the fused and the loop driver: every id at its returned
+     distance, and dists and ids equal to the popcount oracle on 256
+     queries and to the range engine on every row, but for the ids among
+     the codes at a row's kth distance (the stop rule of the reference
+     may stop before it has seen them all; the count is printed);
+ 13. 1B codes on one card: bench.make_index(1e9) (generated on the card,
+     compact layout, no flat id columns; generation and build seconds,
+     peak device memory), 8192 perturbed and 8192 uniform queries at
+     k = 10 through bench.cell, each equal to the popcount oracle on 32
+     queries (dists and ids), the radius steps on the _pos merges, every
+     blockmin launch on the tensor-core instance with the whole batch of
+     its scan.
+Phases 4 to 13 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
-(phases 4 and 11) must go through the tensor-core instance. The line
-before the last is a JSON record of the kernels; the last line is
+(phases 4, 11, 12 and 13) must go through the tensor-core instance. The
+line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -73,6 +93,8 @@ N_MAIN = 1_000_000
 N_SCALE = 100_000_000
 N_PAIRWISE = 131_072
 N_SCALE_ORACLE = 64
+N_BILLION = 1_000_000_000
+N_BILLION_ORACLE = 32
 #: an H100 SXM's dense int8 tensor-core rate (ops/s) and memory rate (B/s)
 H100_INT8_OPS = 1979e12
 H100_BYTES = 3.35e12
@@ -168,11 +190,88 @@ def check_result(torch, name, res, db, q, k):
           f"{name}: dists not ascending")
 
 
-def oracle(q, db, k):
+def tie_equal(torch, name, res, dists, ids):
+    """``res`` against another exact answer ``(dists, ids)`` (host
+    tensors): dists equal on every row, ids equal except among the codes
+    at a row's kth distance, where two exact answers may keep different
+    ones. The bucket engines' stop rule, the reference's (kth distance at
+    most (radius + 1) * m), can stop before every code at that distance
+    was seen. Returns how many rows kept other ids at the kth distance."""
+    check(torch.equal(res.dists, dists), f"{name}: dists differ")
+    same = res.ids == ids
+    check(bool((same | (res.dists == res.dists[:, -1:])).all()),
+          f"{name}: ids differ below the kth distance")
+    return int((~same.all(-1)).sum())
+
+
+def oracle(q, db, k, chunk=65536):
     """The popcount oracle's (dists, ids), on the host."""
     from verticut_tpu_torch.ops.hamming import scan_popcount
-    od, oi = scan_popcount(q, db, k)
+    od, oi = scan_popcount(q, db, k, chunk=chunk)
     return od.cpu(), oi.cpu()
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """Set each ``(object, attribute, value)`` for the block's duration."""
+    old = [(o, a, getattr(o, a)) for o, a, _ in swaps]
+    for o, a, v in swaps:
+        setattr(o, a, v)
+    try:
+        yield
+    finally:
+        for o, a, v in old:
+            setattr(o, a, v)
+
+
+@contextlib.contextmanager
+def whole_batch_scans(kb):
+    """Record every block-min scan (``scan_blockmin`` as the drivers and
+    linear_search call it) and every blockmin call inside one. Yields a
+    dict: ``scans``, the query counts of the scans; ``split``, the calls
+    whose query count was not their scan's whole batch. The kernel's own
+    launch counts stay the wrapper's."""
+    from verticut_tpu_torch.ops import hamming
+    from verticut_tpu_torch.search import single
+    rec = {"scans": [], "split": 0}
+    scan, launch, cur = hamming.scan_blockmin, kb.blockmin, []
+
+    def scan_rec(queries, *a, **kw):
+        rec["scans"].append(queries.shape[0])
+        cur.append(queries.shape[0])
+        try:
+            return scan(queries, *a, **kw)
+        finally:
+            cur.pop()
+
+    def launch_rec(queries, *a, **kw):
+        rec["split"] += not cur or queries.shape[0] != cur[-1]
+        return launch(queries, *a, **kw)
+
+    with patched((hamming, "scan_blockmin", scan_rec),
+                 (single, "scan_blockmin", scan_rec),
+                 (kb, "blockmin", launch_rec)):
+        yield rec
+
+
+@contextlib.contextmanager
+def counted_merges():
+    """Count the radius steps' strip merges by branch: ``pos`` (wide ids)
+    and ``packed``."""
+    from verticut_tpu_torch.ops import topk
+    merges = {"pos": 0, "packed": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            merges[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    with patched((topk, "merge_strips_dedup_pos",
+                  counted("pos", topk.merge_strips_dedup_pos)),
+                 (topk, "merge_strips_packed",
+                  counted("packed", topk.merge_strips_packed))):
+        yield merges
 
 
 def timed(torch, fn):
@@ -481,7 +580,6 @@ def scale_phase(torch, kb, dev, k10, k100):
     """Phase 11: bench.py's scale branch at the reference's default 100M
     codes. Returns the phase's blockmin launches."""
     from verticut_tpu_torch import bench, bits, codes
-    from verticut_tpu_torch.ops import topk
     torch.cuda.reset_peak_memory_stats()
     index, info = bench.make_index(N_SCALE, dev)
     peak = torch.cuda.max_memory_allocated()
@@ -498,20 +596,9 @@ def scale_phase(torch, kb, dev, k10, k100):
         f"{index.codes.numel() * 4 / 2**30:.2f} GiB")
     q = bench.perturbed_queries(np.random.default_rng(0), index.codes, Q)
     u = bits.as_codes(codes.random_codes(99, Q, 128), dev)
-    merges = {"pos": 0, "packed": 0}
-    originals = (topk.merge_strips_dedup_pos, topk.merge_strips_packed)
-
-    def counted(name, fn):
-        def wrapper(*a, **kw):
-            merges[name] += 1
-            return fn(*a, **kw)
-        return wrapper
-
-    topk.merge_strips_dedup_pos = counted("pos", originals[0])
-    topk.merge_strips_packed = counted("packed", originals[1])
     kb.launches = 0
     out = {}
-    try:
+    with counted_merges() as merges, whole_batch_scans(kb) as scans:
         for name, qs, scfg, n_batches, runs in (
                 ("100M k=10", q, k10, 12, 3), ("100M k=100", q, k100, 8, 1),
                 ("100M uniform k=10", u, k10, 8, 1)):
@@ -530,8 +617,8 @@ def scale_phase(torch, kb, dev, k10, k100):
                 f"queries/s; radius histogram "
                 f"{torch.bincount(c['result'].radius).tolist()}; blockmin "
                 f"launches {kb.launches - before}")
-    finally:
-        topk.merge_strips_dedup_pos, topk.merge_strips_packed = originals
+    check(scans["split"] == 0, f"100M: {scans['split']} blockmin launches "
+          "took a slice of their scan's batch")
     check(merges["pos"] > 0 and merges["packed"] == 0,
           f"100M: the radius steps' merges were {merges}, not all _pos")
     t0 = time.perf_counter()
@@ -549,8 +636,124 @@ def scale_phase(torch, kb, dev, k10, k100):
         f"{N_SCALE_ORACLE} queries, dists and ids ({oracle_s:.1f} s for "
         f"two scans); radius steps merged by the _pos selections "
         f"({merges['pos']} merges, 0 packed); blockmin launches "
-        f"{kb.launches}")
+        f"{kb.launches}, each on its scan's whole batch (scans of "
+        f"{sorted(set(scans['scans']))} queries)")
     return kb.launches
+
+
+def bucket_phase(torch, kb, kp, dev, packed, q_dev, k10):
+    """Phase 12: the bucket directories at 1M codes, each engine through
+    both drivers against the oracle and (at m = 4) the range engine.
+    Returns the phase's blockmin launches by instance."""
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.index import build_index
+    from verticut_tpu_torch.index import directory as dir_lib
+    from verticut_tpu_torch.search import mih_search
+    cfg4, cfg8 = MIHConfig(bits=128, n_tables=4), MIHConfig(bits=128,
+                                                           n_tables=8)
+    rng_index = build_index(packed, cfg4, device=dev)
+    want = mih_search(rng_index, q_dev, k10)
+    od, oi = oracle(q_dev[:256], rng_index.codes, k10.knn)
+    del rng_index
+    zero_counts(kb, kp)
+    for name, cfg, kw, kind in (
+            ("m=8 default (auto)", cfg8, {}, dir_lib.DenseDirectory),
+            ("m=8 default + bitmap", cfg8, {"with_bitmap": True},
+             dir_lib.DenseDirectory),
+            ("m=4 sorted", cfg4, {"directory": "sorted"},
+             dir_lib.SortedDirectory),
+            ("m=4 prefix", cfg4, {"directory": "prefix"},
+             dir_lib.PrefixDirectory),
+            ("m=4 hash", cfg4, {"directory": "hash"},
+             dir_lib.HashDirectory)):
+        index, build_s = timed(torch, lambda: build_index(packed, cfg,
+                                                          device=dev, **kw))
+        check(all(isinstance(t.directory, kind) for t in index.tables),
+              f"{name}: built {type(index.tables[0].directory).__name__}")
+        for fused in (True, False):
+            scfg = dataclasses.replace(
+                k10, fused=fused, use_bitmap=index.tables[0].bitmap is not None)
+            before = dict(kb.launches_by_instance)
+            mih_search(index, q_dev, scfg)
+            res, warm = timed(torch, lambda: mih_search(index, q_dev, scfg))
+            label = f"1M bucket {name} fused={fused}"
+            check_result(torch, label, res, index.codes, q_dev, k10.knn)
+            ties = (tie_equal(torch, f"{label} vs the oracle",
+                              res._replace(dists=res.dists[:256],
+                                           ids=res.ids[:256]), od, oi),
+                    tie_equal(torch, f"{label} vs the range engine", res,
+                              want.dists, want.ids))
+            log(f"{label}: build {build_s:.3f} s, warm batch {warm:.4f} "
+                f"s/batch; radius histogram "
+                f"{torch.bincount(res.radius).tolist()}; oracle (256): "
+                f"{ties[0]} rows kept other ids at the kth distance; range "
+                f"engine (every row): {ties[1]}; blockmin launches by "
+                f"instance "
+                f"{ {k: kb.launches_by_instance[k] - before[k] for k in before} }")
+        del index
+        torch.cuda.empty_cache()
+    return dict(kb.launches_by_instance)
+
+
+def billion_phase(torch, kb, kp, dev, k10):
+    """Phase 13: 1B codes on one card through bench.py's scale path.
+    Returns the phase's blockmin launches by instance."""
+    from verticut_tpu_torch import bench, bits, codes
+    torch.cuda.reset_peak_memory_stats()
+    index, info = bench.make_index(N_BILLION, dev)
+    peak = torch.cuda.max_memory_allocated()
+    check(info["layout"] == "compact"
+          and all(t.entry_ids is None and t.entry_rows is None
+                  for t in index.tables),
+          "1B: expected the compact layout without flat id columns")
+    index_bytes = sum(4 * (t.entry_idrows.numel() + t.directory.se.numel())
+                      for t in index.tables)
+    log(f"build N={N_BILLION}: generated on the card in {info['gen_s']:.2f} "
+        f"s, built in {info['build_s']:.2f} s, pbits "
+        f"{index.tables[0].directory.pbits}; peak device memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated), index "
+        f"{index_bytes / 2**30:.2f} GiB + codes "
+        f"{index.codes.numel() * 4 / 2**30:.2f} GiB")
+    q = bench.perturbed_queries(np.random.default_rng(0), index.codes, Q)
+    u = bits.as_codes(codes.random_codes(99, Q, 128), dev)
+    zero_counts(kb, kp)
+    out = {}
+    with counted_merges() as merges, whole_batch_scans(kb) as scans:
+        for name, qs in (("1B k=10", q), ("1B uniform k=10", u)):
+            before = kb.launches
+            c = bench.cell(index, qs, k10, 4, 1)
+            check(c["handle"] is not None and tuple(
+                c["handle"].packed.shape) == (Q, 2 * k10.knn + 3),
+                f"{name}: the result row is not [Q, 2k + 3]")
+            check_result(torch, name, c["result"], index.codes, qs, k10.knn)
+            out[name] = c["result"]
+            log(f"cell {name}: first batch {c['warmup_s']:.4f} s, latency "
+                f"{c['latency_s'][0]:.4f} s, pipelined (depth 4, 4 batches) "
+                f"{c['pipelined_batch_s']:.4f} s/batch, {c['qps']:.0f} "
+                f"queries/s; radius histogram "
+                f"{torch.bincount(c['result'].radius).tolist()}; blockmin "
+                f"launches {kb.launches - before}")
+    check(merges["pos"] > 0 and merges["packed"] == 0,
+          f"1B: the radius steps' merges were {merges}, not all _pos")
+    check(scans["split"] == 0, f"1B: {scans['split']} blockmin launches "
+          "took a slice of their scan's batch")
+    check(kb.launches_by_instance["generic"] == 0 and kb.launches > 0,
+          f"1B: blockmin launches {kb.launches_by_instance}")
+    t0 = time.perf_counter()
+    for name, qs in (("1B k=10", q), ("1B uniform k=10", u)):
+        d, i = oracle(qs[:N_BILLION_ORACLE], index.codes, k10.knn,
+                      chunk=1 << 18)
+        r = out[name]
+        check(torch.equal(r.dists[:N_BILLION_ORACLE], d)
+              and torch.equal(r.ids[:N_BILLION_ORACLE], i),
+              f"{name}: != the popcount oracle")
+    log(f"1B: both cells equal the popcount oracle on {N_BILLION_ORACLE} "
+        f"queries, dists and ids ({time.perf_counter() - t0:.1f} s for two "
+        f"scans); radius steps merged by the _pos selections "
+        f"({merges['pos']} merges, 0 packed); blockmin launches "
+        f"{kb.launches_by_instance}, each on its scan's whole batch (scans "
+        f"of {sorted(set(scans['scans']))} queries)")
+    return dict(kb.launches_by_instance)
 
 
 def main() -> int:
@@ -647,7 +850,7 @@ def main() -> int:
     loop_phase(torch, kb, index, q_dev, u_dev, k10)
     approx_phase(torch, kb, index, q_dev, k10)
     dispatch_phase(torch, index, q_dev, k10)
-    del index, q_dev, u_dev, db
+    del index, u_dev, db
     torch.cuda.empty_cache()
 
     # 9. a 64-bit index: the tensor-core instance at W = 2 on the scan tier
@@ -670,6 +873,18 @@ def main() -> int:
     log(f"100M phase blockmin launches by instance: {scale_by_instance}")
     check(scale_by_instance["tensor"] > 0,
           "the 100M phase launched no tensor-core blockmin kernel")
+    torch.cuda.empty_cache()
+
+    # 12. the bucket directories (counts zeroed inside)
+    bucket_by_instance = bucket_phase(torch, kb, kp, dev, packed, q_dev, k10)
+    log(f"bucket phase blockmin launches by instance: {bucket_by_instance}")
+    check(bucket_by_instance["generic"] == 0,
+          "the bucket phase launched the generic blockmin instance")
+    del q_dev
+    torch.cuda.empty_cache()
+
+    # 13. 1B codes (counts zeroed inside)
+    billion_by_instance = billion_phase(torch, kb, kp, dev, k10)
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
@@ -680,6 +895,9 @@ def main() -> int:
          "launches": main_launches, "launches_by_instance": main_by_instance,
          "scale_launches": scale_launches,
          "scale_launches_by_instance": scale_by_instance,
+         "bucket_launches_by_instance": bucket_by_instance,
+         "launches_1b": sum(billion_by_instance.values()),
+         "launches_1b_by_instance": billion_by_instance,
          "max_abs_err": max_err["blockmin"],
          "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
          "bound_ms": bm_bound, "bound_by": bm_by,

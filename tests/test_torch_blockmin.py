@@ -128,6 +128,47 @@ def test_scan_blockmin_engines_match_jax(engine):
         assert np.array_equal(i.numpy(), np.asarray(ji))
 
 
+@pytest.mark.parametrize("k,block", [(5, 64), (40, 32), (300, 64)])
+def test_folded_selection_matches_single_chunk_and_jax(monkeypatch, k,
+                                                       block):
+    """Block selection folded over corpus chunks: SLICE_ELEMS small enough
+    for one kernel tile per chunk gives five chunks with a ragged last
+    block, each one blockmin call on the whole batch. Equal to the
+    single-chunk run, to the JAX package's folded XLA branch and to brute
+    force; query 3 ties at distance 0 across the chunk borders (the 5
+    smallest of 7 ids win at k = 5), and k = 300 passes nb = 141."""
+    n = 9000 + block // 2 + 3
+    raw_db, raw_q = _adversarial(17, n, 9)
+    for r in (2047, 2048, 4095, 6144, 8191, 8192, n - 1):
+        raw_db[r] = raw_q[3]
+    ed, ei = ref.brute_force(raw_q, raw_db, k)
+    q = bits.as_codes(jcodes.pack_bytes(raw_q))
+    db = bits.as_codes(jcodes.pack_bytes(raw_db))
+    whole = hamming.scan_blockmin(q, db, k, block=block)
+    calls = []
+    twin = kb.blockmin
+
+    def counted(queries, rows, n_rows, blk):
+        calls.append((queries.shape[0], rows.shape[0]))
+        return twin(queries, rows, n_rows, blk)
+
+    monkeypatch.setattr(kb, "blockmin", counted)
+    monkeypatch.setattr(hamming, "SLICE_ELEMS", 9 * (2048 // block))
+    folded = hamming.scan_blockmin(q, db, k, block=block)
+    assert [c[0] for c in calls] == [9] * 5
+    assert [c[1] for c in calls] == [2048] * 4 + [n - 4 * 2048]
+    jd, ji = jhamming.scan_blockmin(jnp.asarray(jcodes.pack_bytes(raw_q)),
+                                    jnp.asarray(jcodes.pack_bytes(raw_db)),
+                                    k, chunk=2048, block=block, engine="xla")
+    for d, i in (folded, (jd, ji)):
+        assert np.array_equal(np.asarray(d), whole[0].numpy())
+        assert np.array_equal(np.asarray(i), whole[1].numpy())
+    assert np.array_equal(whole[0].numpy(), ed)
+    assert np.array_equal(whole[1].numpy(), ei)
+    if k == 5:
+        assert whole[1][3].tolist() == [2047, 2048, 4095, 6144, 8191]
+
+
 def test_scan_blockmin_rejects_what_the_reference_rejects():
     q = torch.zeros((3, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="engine"):

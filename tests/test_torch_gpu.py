@@ -1,6 +1,7 @@
 """Tests of verticut_tpu_torch that need an NVIDIA GPU: the CUDA blockmin
-and pairwise kernels against their plain twins, and the search paths on
-the card (fused and loop driver, every linear_search method) against the
+and pairwise kernels against their plain twins (blockmin also inside the
+folded block-min scan), and the search paths on the card (fused and loop
+driver, range and bucket engines, every linear_search method) against the
 popcount oracle. Exact equality throughout. They skip without CUDA.
 
 This file imports neither jax nor verticut_tpu, so on a machine without
@@ -184,6 +185,71 @@ def test_mih_search_on_card_matches_oracle(cuda_device, uniform, fused):
     assert torch.equal(res.dists, od.cpu()) and torch.equal(res.ids, oi.cpu())
     if uniform:              # the scan tier or the fallback ran the kernel
         assert kb.launches > before
+
+
+@pytest.mark.parametrize("directory,m", [("auto", 8), ("sorted", 4),
+                                         ("prefix", 4), ("hash", 4)])
+@pytest.mark.parametrize("fused", [True, False])
+def test_bucket_engines_on_card_match_oracle(cuda_device, directory, m,
+                                             fused):
+    """The bucket engines on the card (dense at 16-bit substrings with the
+    bitmap; sorted, prefix and hash at 32 bits, codes crossing 2^31),
+    equal to the popcount oracle in dists, and in ids below each row's
+    kth distance."""
+    packed = codes.clustered_codes(5, 100_000, 128, n_clusters=500,
+                                   flip_p=0.02)
+    packed[:5000] ^= np.uint32(0x80808080)
+    index = build_index(packed, MIHConfig(bits=128, n_tables=m),
+                        directory=directory, with_bitmap=m == 8,
+                        device=cuda_device)
+    assert not index.is_range
+    q = np.concatenate([packed[:384] ^ np.uint32(0x10001),
+                        codes.random_codes(10, 128, 128)])
+    res = mih_search(index, q, SearchConfig(knn=10, use_bitmap=m == 8,
+                                            fused=fused))
+    od, oi = linear_search(q, index.codes, 10, method="popcount")
+    assert torch.equal(res.dists, od.cpu())
+    # ids too, but for the codes at a row's kth distance: the stop rule
+    # (kth distance at most (radius + 1) * m) may stop before it has seen
+    # every code at that distance (ROADMAP.md Queue 3)
+    assert bool(((res.ids == oi.cpu())
+                 | (res.dists == res.dists[:, -1:])).all())
+
+
+@pytest.mark.parametrize("nq,k,block", [(300, 10, 512), (8192, 100, 128)])
+def test_folded_scan_on_card_matches_twin(cuda_device, monkeypatch, nq, k,
+                                          block):
+    """scan_blockmin's block selection folded over corpus chunks (a small
+    SLICE_ELEMS: four kernel tiles a chunk): each chunk is one kernel
+    launch on the whole batch, the last with a ragged block, and the scan
+    equals the same scan on the CPU (the twin, one chunk) in dists and
+    ids; ties at distance 0 across chunk borders go to the smaller id."""
+    from verticut_tpu_torch.ops import hamming
+    rng = np.random.default_rng(nq)
+    q, db = _codes(rng, nq, 4), _codes(rng, 60_000 + block // 2 + 3, 4)
+    for r in (8191, 8192, 16384, 40000, db.shape[0] - 1):
+        db[r] = q[1]
+    want = hamming.scan_blockmin(q, db, k, block=block)
+    monkeypatch.setattr(hamming, "SLICE_ELEMS", nq * 4 * (2048 // block))
+    calls = []
+    kernel = kb.blockmin
+
+    def counted(queries, rows, n, blk):
+        calls.append(queries.shape[0])
+        return kernel(queries, rows, n, blk)
+
+    monkeypatch.setattr(kb, "blockmin", counted)
+    before = kb.launches_by_instance["tensor"]
+    got = hamming.scan_blockmin(q.to(cuda_device), db.to(cuda_device), k,
+                                block=block)
+    torch.cuda.synchronize()
+    n_chunks = -(-db.shape[0] // 8192)
+    assert calls == [nq] * n_chunks
+    assert kb.launches_by_instance["tensor"] - before == n_chunks
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert want[1][1, :5].tolist() == [8191, 8192, 16384, 40000,
+                                       db.shape[0] - 1]
 
 
 def test_approximate_drivers_agree_on_card(cuda_device):

@@ -1,8 +1,10 @@
-"""verticut_tpu_torch.index against the JAX package's range builds: every
-array byte-equal (tolerance 0)."""
+"""verticut_tpu_torch.index against the JAX package's builds, range and
+bucket tables: every array byte-equal (tolerance 0), and files saved by
+either package loaded by the other."""
 
 import numpy as np
 import pytest
+import torch
 
 from verticut_tpu import codes as jcodes
 from verticut_tpu.config import MIHConfig
@@ -20,6 +22,17 @@ from verticut_tpu_torch.search import mih_search
 from verticut_tpu_torch.config import SearchConfig
 
 
+#: each directory's arrays, by attribute name in both packages
+DIR_ARRAYS = {"RangeDirectory": ("se",), "DenseDirectory": ("offsets",),
+              "SortedDirectory": ("keys",), "HashDirectory": ("rows",),
+              "PrefixDirectory": ("prefix_offsets", "keys", "run_end")}
+
+
+def _u32(x):
+    return (bits.to_u32(x) if isinstance(x, torch.Tensor)
+            else np.asarray(x).view(np.uint32))
+
+
 def _assert_same(port, ref):
     """Every array of the two indexes equal, None where the other is."""
     assert port.n == ref.n
@@ -27,15 +40,23 @@ def _assert_same(port, ref):
                                                   ref.cfg.n_tables)
     assert np.array_equal(bits.to_u32(port.codes), np.asarray(ref.codes))
     for tp, tr in zip(port.tables, ref.tables, strict=True):
-        assert tp.directory.pbits == tr.directory.pbits
-        assert np.array_equal(tp.directory.se.numpy(),
-                              np.asarray(tr.directory.se))
-        for f in ("entry_rows", "entry_idrows", "entry_ids"):
+        kind = type(tp.directory).__name__
+        assert kind == type(tr.directory).__name__
+        for f in DIR_ARRAYS[kind]:
+            assert np.array_equal(_u32(getattr(tp.directory, f)),
+                                  _u32(getattr(tr.directory, f))), f
+        if kind == "PrefixDirectory":
+            assert (tp.directory.shift, tp.directory.iters) == (
+                tr.directory.shift, tr.directory.iters)
+        assert (tp.bitmap is None) == (tr.bitmap is None)
+        if tp.bitmap is not None:
+            assert np.array_equal(_u32(tp.bitmap.words),
+                                  _u32(tr.bitmap.words))
+        for f in ("entry_rows", "entry_idrows", "entry_ids", "entry_codes"):
             a, b = getattr(tp, f), getattr(tr, f)
             assert (a is None) == (b is None), f
             if a is not None:
-                assert np.array_equal(bits.to_u32(a),
-                                      np.asarray(b).view(np.uint32)), f
+                assert np.array_equal(_u32(a), _u32(b)), f
 
 
 @pytest.mark.parametrize("n", [1000, 200_000])
@@ -129,24 +150,84 @@ def test_save_load_across_packages(tmp_path, writer, store_codes, keep_ids):
 
 
 def test_unported_layouts_raise():
+    """Every directory and table layout of the reference is ported; what
+    still raises is what the reference cannot hold either: an unknown
+    directory, a dense directory past 26 bits, codes of the wrong width, a
+    saved table without a directory, and a saved bucket table without its
+    ids."""
     packed = jcodes.random_codes(7, 100, 128)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="unknown directory"):
+        build_index(packed, MIHConfig(), device="cpu", directory="btree")
+    with pytest.raises(ValueError, match="infeasible"):
         build_index(packed, MIHConfig(), device="cpu", directory="dense")
-    arrays = {"n": np.asarray(100), "bits": np.asarray(128),
-              "n_tables": np.asarray(4), "codes": packed}
-    with pytest.raises(NotImplementedError):
-        index_from_arrays(arrays, device="cpu")
     with pytest.raises(ValueError):
         build_index(packed[:, :2], MIHConfig(), device="cpu")
-    # a legacy bucket table (dense offsets) in a saved file
+    arrays = {"n": np.asarray(100), "bits": np.asarray(128),
+              "n_tables": np.asarray(4), "codes": packed}
+    with pytest.raises(ValueError, match="no directory"):
+        index_from_arrays(arrays, device="cpu")
     ref = jax_build_index(packed[:, :2], MIHConfig(bits=64, n_tables=4),
                           directory="dense")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="t0_ids"):
         index_from_arrays({"n": np.asarray(100), "bits": np.asarray(64),
                            "n_tables": np.asarray(4),
                            "t0_offsets": np.asarray(
                                ref.tables[0].directory.offsets)},
                           device="cpu")
+
+
+@pytest.mark.parametrize("bits_w,m,kind", [(128, 4, "RangeDirectory"),
+                                           (128, 8, "DenseDirectory"),
+                                           (64, 4, "DenseDirectory"),
+                                           (96, 4, "DenseDirectory"),
+                                           (256, 8, "RangeDirectory")])
+def test_default_build_picks_the_jax_directory(bits_w, m, kind):
+    """build_index with default arguments picks the JAX package's
+    directory (``auto``: dense up to 24-bit substrings, else range) and
+    builds the same arrays."""
+    packed = jcodes.clustered_codes(2, 2000, bits_w, n_clusters=10,
+                                    flip_p=0.05)
+    cfg = MIHConfig(bits=bits_w, n_tables=m)
+    port, ref = build_index(packed, cfg, device="cpu"), jax_build_index(
+        packed, cfg)
+    assert type(port.tables[0].directory).__name__ == kind
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("directory,bits_w,store_codes,with_bitmap", [
+    ("dense", 64, True, True), ("dense", 64, False, False),
+    ("sorted", 128, True, False), ("prefix", 128, False, False),
+    ("hash", 128, True, False), ("hash", 64, False, True),
+    ("range", 64, True, True)])
+def test_bucket_builds_save_and_load_across_packages(
+        tmp_path, directory, bits_w, store_codes, with_bitmap):
+    """Every table kind the JAX package's save_index writes (dense
+    offsets, sorted/prefix keys, hash rows, range with a bitmap; with and
+    without per-entry codes and bitmaps): the port builds the same arrays,
+    and a file saved by either package loads in the other (sorted keys load
+    as a prefix directory in both). Codes crossing 2^31 in every table;
+    bitmaps at 16-bit substrings (one at 32 bits is 512 MB a table)."""
+    packed = jcodes.clustered_codes(31, 2500, bits_w, n_clusters=20,
+                                    flip_p=0.04)
+    packed[:50] |= np.uint32(0x80808080)
+    cfg = MIHConfig(bits=bits_w, n_tables=4)
+    kw = dict(directory=directory, store_codes=store_codes,
+              with_bitmap=with_bitmap)
+    port = build_index(packed, cfg, device="cpu", **kw)
+    ref = jax_build_index(packed, cfg, **kw)
+    _assert_same(port, ref)
+    for writer, idx in (("port", port), ("jax", ref)):
+        path = str(tmp_path / f"{writer}.npz")
+        (port_save_index if writer == "port" else save_index)(path, idx)
+        _assert_same(load_index(path, device="cpu"), jax_load_index(path))
+        with np.load(path) as z:
+            assert {k.split("_", 1)[1] for k in z.files
+                    if k.startswith("t0_")} == (
+                {"ids"} | {"dense": {"offsets"}, "sorted": {"keys"},
+                           "prefix": {"keys"}, "hash": {"hashrows"},
+                           "range": {"se", "rows"}}[directory]
+                | ({"codes"} if store_codes and directory != "range"
+                   else set()) | ({"bitmap"} if with_bitmap else set()))
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -1,7 +1,8 @@
 """verticut_tpu_torch.index.integrity against verticut_tpu.index.integrity:
-equal reports (every mismatch count, tolerance 0) on clean range builds of
-every layout and on each corruption a range table can carry."""
+equal reports (every mismatch count, tolerance 0) on clean builds of every
+layout and directory and on each corruption a table can carry."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -15,6 +16,7 @@ from verticut_tpu.index import build_index as jax_build_index
 from verticut_tpu.index import directory as jdir
 from verticut_tpu.index.integrity import check_index as jax_check_index
 from verticut_tpu.index.integrity import check_table as jax_check_table
+from verticut_tpu_torch import bits
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.index import directory as tdir
 from verticut_tpu_torch.index.integrity import check_index, check_table
@@ -22,15 +24,12 @@ from verticut_tpu_torch.index.integrity import check_index, check_table
 CFG = MIHConfig(bits=128, n_tables=4)
 
 
-def _db(n, seed):
+def _builds(n, seed, cfg=CFG, directory="range", **kw):
     rng = np.random.default_rng(seed)
-    return jcodes.pack_bytes(rng.integers(0, 256, (n, 16), dtype=np.uint8))
-
-
-def _builds(n, seed, **kw):
-    db = _db(n, seed)
-    return (build_index(db, CFG, device="cpu", **kw),
-            jax_build_index(jnp.asarray(db), CFG, directory="range", **kw))
+    db = jcodes.pack_bytes(rng.integers(0, 256, (n, cfg.bits // 8),
+                                        dtype=np.uint8))
+    return (build_index(db, cfg, device="cpu", directory=directory, **kw),
+            jax_build_index(jnp.asarray(db), cfg, directory=directory, **kw))
 
 
 def _same_reports(a, b):
@@ -45,6 +44,20 @@ def _same_reports(a, b):
 def test_clean_index_passes(store_codes, keep_ids):
     port, ref = _builds(3000, 1, store_codes=store_codes,
                         keep_entry_ids=keep_ids)
+    got, want = check_index(port), jax_check_index(ref)
+    assert got["ok"] and want["ok"] and got["n"] == 3000
+    for a, b in zip(got["tables"], want["tables"], strict=True):
+        _same_reports(a, b)
+
+
+@pytest.mark.parametrize("directory,store_codes", [
+    ("dense", True), ("dense", False), ("hash", True), ("prefix", True),
+    ("sorted", True)])
+def test_clean_bucket_index_passes(directory, store_codes):
+    """The JAX package's directory parameter: dense at 64-bit codes
+    (16-bit substrings), the others at 128."""
+    cfg = MIHConfig(bits=64, n_tables=4) if directory == "dense" else CFG
+    port, ref = _builds(3000, 1, cfg, directory, store_codes=store_codes)
     got, want = check_index(port), jax_check_index(ref)
     assert got["ok"] and want["ok"] and got["n"] == 3000
     for a, b in zip(got["tables"], want["tables"], strict=True):
@@ -91,6 +104,44 @@ def test_detects_corrupted_directory():
     got = check_table(port.codes, bad, 0, CFG)
     _same_reports(got, jax_check_table(ref.codes, bad_j, 0, CFG))
     assert not got["ok"] and got["directory_mismatches"] >= 1
+
+
+@pytest.mark.parametrize("directory,field,pos,mask", [
+    ("dense", "offsets", 300, 1), ("sorted", "okeys", 40, 1 << 31),
+    ("prefix", "okeys", 900, 2), ("prefix", "run_end", 17, 1),
+    ("prefix", "prefix_offsets", 5, 1), ("hash", "rows", None, 1),
+    ("dense", "entry_codes", 4 * 77 + 2, 0x100)])
+def test_detects_corrupted_bucket_table(directory, field, pos, mask):
+    """Each stored array of a bucket table, one word flipped, in both
+    packages: equal reports, and the corruption found. A hash row is
+    corrupted in the count of an occupied slot."""
+    cfg = MIHConfig(bits=64, n_tables=4) if directory == "dense" else CFG
+    port, ref = _builds(2000, 6, cfg, directory)
+    t, tj = port.tables[2], ref.tables[2]
+    if field == "entry_codes":
+        bad = t._replace(entry_codes=_flip(t.entry_codes, pos, mask))
+        bad_j = tj._replace(entry_codes=_flip_j(tj.entry_codes, pos, mask))
+    else:
+        d = copy.copy(t.directory)
+        arr = getattr(d, field)
+        if pos is None:                         # an occupied slot's count
+            pos = 4 * int(torch.nonzero(arr[:, 2])[0, 0]) + 2
+        setattr(d, field, _flip(arr, pos, mask))
+        if directory == "hash":
+            dj = jdir.HashDirectory(rows=jnp.asarray(bits.to_u32(d.rows)))
+        elif directory == "dense":
+            dj = jdir.DenseDirectory(offsets=jnp.asarray(d.offsets.numpy()))
+        elif directory == "sorted":
+            dj = jdir.SortedDirectory(keys=jnp.asarray(bits.to_u32(d.keys)))
+        else:
+            dj = jdir.PrefixDirectory(
+                jnp.asarray(d.prefix_offsets.numpy()),
+                jnp.asarray(bits.to_u32(d.keys)),
+                jnp.asarray(d.run_end.numpy()), d.shift, d.iters)
+        bad, bad_j = t._replace(directory=d), tj._replace(directory=dj)
+    got = check_table(port.codes, bad, 2, cfg)
+    _same_reports(got, jax_check_table(ref.codes, bad_j, 2, cfg))
+    assert not got["ok"]
 
 
 def test_needs_codes_and_an_id_column():

@@ -1,5 +1,6 @@
-"""verticut_tpu_torch.ops.chunks / topk against verticut_tpu.ops on random
-inputs: exact equality (tolerance 0). The JAX selections use inverted
+"""verticut_tpu_torch.ops.chunks / topk and the bucket engine's
+expand_buckets against verticut_tpu on random inputs: exact equality
+(tolerance 0). The JAX selections use inverted
 uint32 keys ``~(dist << 24 | id)``; the port's ascending int64 keys equal
 their complements, with the sentinel 0xFFFFFFFF for the inverted 0."""
 
@@ -49,6 +50,28 @@ def test_chunk_descriptors_match(chb):
         assert np.array_equal(g.numpy(), np.asarray(w))
     ovf = got[4]
     assert bool(ovf.any()) == (chb < 64) and not ovf.all()
+
+
+@pytest.mark.parametrize("cap", [64, 256, 2048])
+def test_expand_buckets_matches_jax(cap):
+    """Entries, validity and totals of the bucket engine's slot expansion,
+    bit-equal to the JAX package's (its default lowering at these shapes),
+    invalid slots included: empty probes, a query with no candidates, and
+    totals past the cap (truncated; the caller flags overflow)."""
+    from verticut_tpu.search.single import expand_buckets as jexpand
+    from verticut_tpu_torch.search.single import expand_buckets
+    rng = np.random.default_rng(cap)
+    starts, counts = _ranges(rng, 29, 37, 100_000)
+    counts[0] = 0
+    counts[1, :] = 0
+    counts[1, -1] = 7                               # only the last probe
+    got = expand_buckets(_t(starts), _t(counts), cap)
+    want = jexpand(jnp.asarray(starts), jnp.asarray(counts), cap)
+    for g, w in zip(got, want, strict=True):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    total = got[2].numpy()
+    assert (total > cap).any() == (cap < 2048) and (total <= cap).any()
+    assert got[1][1].sum() == 7 and not got[1][0].any()
 
 
 def test_fetch_score_blocks_match_with_pad_ids():

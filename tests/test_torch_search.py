@@ -107,16 +107,17 @@ def test_overflow_retry_ladders_match_jax(monkeypatch):
 @pytest.mark.parametrize("fused", [False, True])
 def test_drivers_match_jax_small(n, n_tables, k, approx, fused):
     """The cases of the JAX package's fused-equals-loop test, each driver
-    against the JAX driver of the same flags."""
+    against the JAX driver of the same flags, on both packages' default
+    builds (range at 4 tables, dense at 16)."""
     rng = np.random.default_rng(n + k)
     packed = jcodes.pack_bytes(
         rng.integers(0, 256, size=(n, 16), dtype=np.uint8))
     cfg = MIHConfig(bits=128, n_tables=n_tables)
     scfg = SearchConfig(knn=k, approximate=approx, approximate_factor=4,
                         candidate_cap=1024, fused=fused)
-    _assert_parity(build_index(packed, cfg, device="cpu"),
-                   jax_build_index(packed, cfg, directory="range"),
-                   packed[:32], scfg)
+    port = build_index(packed, cfg, device="cpu")
+    assert port.is_range == (n_tables == 4)
+    _assert_parity(port, jax_build_index(packed, cfg), packed[:32], scfg)
 
 
 @pytest.mark.parametrize("k", [10, 100])
@@ -192,9 +193,9 @@ def test_empty_fused_schedule_runs_the_loop_driver(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What still raises: a bitmap request on the range engine, queries of
-    another width, the legacy bucket directories (ROADMAP.md Queue 1 item
-    8), and a compact layout without its codes."""
+    """What raises: a bitmap request on the range engine (as in the JAX
+    package, which raises for it too), queries of another width, and a
+    compact layout without its codes."""
     packed = jcodes.random_codes(3, 500, 128)
     index = build_index(packed, CFG, device="cpu")
     q = packed[:4]
@@ -202,10 +203,11 @@ def test_unported_options_raise():
         mih_search(index, q, SearchConfig(use_bitmap=True))
     with pytest.raises(ValueError, match="use_bitmap"):
         mih_search_dispatch(index, q, SearchConfig(use_bitmap=True))
+    with pytest.raises(ValueError, match="use_bitmap"):
+        jax_mih_search(jax_build_index(packed, CFG, directory="range"), q,
+                       SearchConfig(use_bitmap=True))
     with pytest.raises(ValueError, match="code width"):
         mih_search(index, q[:, :2], SearchConfig())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_index(packed, CFG, device="cpu", directory="hash")
     with pytest.raises(ValueError, match="compact"):
         build_index(packed, CFG, device="cpu", store_codes=False,
                     keep_codes=False)
@@ -217,6 +219,56 @@ def test_unported_options_raise():
     assert mih_search_dispatch(index, q, SearchConfig(fused=False)) is None
     assert mih_search_dispatch(index, q,
                                SearchConfig(fused_max_masks=0)) is None
+
+
+#: bucket engines: (directory, tables, bitmap built and used, entry codes)
+BUCKETS = [("auto", 8, False, True), ("auto", 8, True, False),
+           ("sorted", 4, False, True), ("prefix", 4, False, False),
+           ("hash", 4, False, True), ("hash", 8, True, True)]
+
+
+@pytest.fixture(scope="module")
+def bucket_corpus():
+    """6000 clustered codes, every substring crossing 2^31 in some rows;
+    48 perturbed and 16 uniform queries."""
+    packed = jcodes.clustered_codes(12, 6000, 128, n_clusters=30,
+                                    flip_p=0.03)
+    packed[:300] ^= np.uint32(0x80808080)
+    q = np.concatenate([_perturbed(packed, 48, seed=3),
+                        jcodes.random_codes(13, 16, 128)])
+    return packed, q
+
+
+@pytest.mark.parametrize("directory,m,bitmap,store_codes", BUCKETS)
+@pytest.mark.parametrize("fused", [True, False])
+def test_bucket_engines_match_jax(bucket_corpus, directory, m, bitmap,
+                                  store_codes, fused):
+    """The bucket engines (dense with and without the bitmap, sorted,
+    prefix, hash) under each driver, exact and approximate, bit-equal to
+    the JAX package in dists, ids and the four stats; the exact answers
+    equal brute force in dists. The exact search's candidate cap of 512 overflows
+    the clustered 16-bit buckets of the 8-table indexes, so the overflow
+    paths run there too."""
+    packed, q = bucket_corpus
+    cfg = MIHConfig(bits=128, n_tables=m)
+    kw = dict(directory=directory, with_bitmap=bitmap,
+              store_codes=store_codes)
+    port = build_index(packed, cfg, device="cpu", **kw)
+    ref = jax_build_index(packed, cfg, **kw)
+    assert not port.is_range
+    exact = SearchConfig(knn=10, candidate_cap=512, use_bitmap=bitmap,
+                         fused=fused)
+    got, _ = _assert_parity(port, ref, q, exact)
+    od, oi = jax_linear_search(q, packed, 10, method="popcount")
+    assert np.array_equal(got.dists.numpy(), np.asarray(od))
+    # ids too, but for the codes at a row's kth distance: the stop rule
+    # (kth distance at most (radius + 1) * m) may stop before it has seen
+    # every code at that distance (ROADMAP.md Queue 3)
+    assert ((got.ids.numpy() == np.asarray(oi))
+            | (got.dists.numpy() == got.dists.numpy()[:, -1:])).all()
+    _assert_parity(port, ref, q, SearchConfig(
+        knn=5, approximate=True, approximate_factor=4, use_bitmap=bitmap,
+        fused=fused))
 
 
 @pytest.mark.parametrize("bits_w,n_tables", [(64, 2), (256, 8)])

@@ -3,11 +3,13 @@ protocol of the reference's ``bench.py``.
 
 Run on a machine with an NVIDIA GPU:
 
-    python -m verticut_tpu_torch.bench
+    python -m verticut_tpu_torch.bench [N]
 
 It prints one JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``extra``) and exits non-zero without CUDA, or when the oracle cell finds a
-wrong answer. Environment, as the reference reads it:
+wrong answer. ``N``, the corpus size, overrides ``VERTICUT_BENCH_N``
+(``python -m verticut_tpu_torch.bench 1000000000`` serves 1B codes from one
+H100 in the compact layout). Environment, as the reference reads it:
 
 * ``VERTICUT_BENCH_N`` corpus size (1,000,000), ``VERTICUT_BENCH_Q`` batch
   size (8192), ``VERTICUT_BENCH_K`` k (10);
@@ -253,13 +255,15 @@ def card() -> dict:
             "nvidia_smi": smi.strip().splitlines()[0]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         log("bench: torch.cuda.is_available() is False; the benchmark "
             "measures a CUDA card")
         return 2
     env = os.environ
-    rec = run(n=int(env.get("VERTICUT_BENCH_N", 1_000_000)),
+    rec = run(n=int(argv[0] if argv else env.get("VERTICUT_BENCH_N",
+                                                 1_000_000)),
               q_batch=int(env.get("VERTICUT_BENCH_Q", 8192)),
               k=int(env.get("VERTICUT_BENCH_K", 10)),
               device=torch.device("cuda", 0),

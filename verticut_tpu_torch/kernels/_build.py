@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels, and check their operands.
+"""Build and load the port's native libraries, and check the kernels'
+operands.
 
 Each ``verticut_tpu_torch/csrc/<name>.cu`` is a plain-C-interface source
 that ``nvcc`` compiles for ``sm_90a`` into its own shared library,
 ``verticut_tpu_torch/_build/libvt_<name>.so``, at first use and again when
-the source is newer than the library. The library is loaded with ctypes.
-A failed build raises: no caller falls back to a plain twin.
+the source is newer than the library; each ``csrc/<name>.cc`` (host code,
+the hash directory's builder) is compiled the same way by the host C++
+compiler. The library is loaded with ctypes. A failed build raises: no
+caller falls back to a plain twin.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 #: compiler output of each build made in this process, by kernel name
 build_logs: Dict[str, str] = {}
@@ -30,7 +34,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def source(name: str) -> str:
-    return os.path.join(CSRC, f"{name}.cu")
+    """``csrc/<name>.cu`` (a CUDA kernel) or else ``csrc/<name>.cc`` (host
+    code)."""
+    cu = os.path.join(CSRC, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC, f"{name}.cc")
 
 
 def lib_path(name: str) -> str:
@@ -47,36 +54,48 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
+def _host_cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found; the host libraries cannot be "
+                           "built")
+    return cxx
+
+
 def build(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` if its library is missing or older than
-    the source."""
+    """Compile ``csrc/<name>.cu`` with nvcc, or ``csrc/<name>.cc`` with the
+    host compiler, if its library is missing or older than the source."""
     src, lib = source(name), lib_path(name)
     if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = ([_nvcc(), *NVCC_FLAGS] if src.endswith(".cu")
+           else [_host_cxx(), *HOST_FLAGS]) + ["-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_logs[name] = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{build_logs[name]}")
+            f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
+            f"{build_logs[name]}")
     os.replace(tmp, lib)
 
 
 def load(name: str, entries: Dict[str, Sequence]) -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once per process.
-    ``entries`` maps each launch function to its ctypes argument types;
-    every launch function returns a ``cudaError_t`` as an int, and every
-    library exports ``const char* vt_error_string(int)``."""
+    """The library, built if needed and loaded once per process.
+    ``entries`` maps each entry function to its ctypes argument types;
+    every entry function returns an int (a CUDA library's, a
+    ``cudaError_t``), and every CUDA library exports ``const char*
+    vt_error_string(int)``."""
     if name not in _libs:
         build(name)
         lib = ctypes.CDLL(lib_path(name))
         for fn, argtypes in entries.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
-        lib.vt_error_string.argtypes = [ctypes.c_int]
-        lib.vt_error_string.restype = ctypes.c_char_p
+        if source(name).endswith(".cu"):
+            lib.vt_error_string.argtypes = [ctypes.c_int]
+            lib.vt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
 

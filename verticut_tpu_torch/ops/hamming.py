@@ -14,10 +14,11 @@ transposed-copy ``scan_blockmin_t``, a TPU layout workaround):
 * :func:`scan_popcount` — chunked full distance matrices and sorts: the
   independent oracle, sharing no selection code with the others.
 
-All bound their temporaries: the block-min scan slices the query batch
-(the ``[Q, nb]`` block-min matrix alone is 2.5 GB at 10M codes, Q = 8192,
-block 128), the others cut the corpus into chunks whose ``[Q, chunk]``
-slab stays under :data:`SLICE_ELEMS` elements.
+All bound their temporaries by cutting the corpus into chunks whose
+``[Q, chunk]`` slab stays under :data:`SLICE_ELEMS` elements: the block-min
+scan folds its block selection over chunks of whole blocks (the ``[Q, nb]``
+block-min matrix alone would be 15 GB at 1B codes, Q = 8192, block 512),
+the others their top-k selection.
 """
 
 from __future__ import annotations
@@ -65,6 +66,14 @@ def _rescore_blocks(queries: torch.Tensor, db: torch.Tensor, n: int,
     return _decode(select_asc(keys, min(k, kb * block)), k)
 
 
+def _fold_blocks(q: int, block: int) -> int:
+    """Blocks per corpus chunk of the block-min fold: ``Q * chunk`` keys at
+    most :data:`SLICE_ELEMS`, and whole 2048-row tiles of the kernel where
+    the block divides them (at least one tile)."""
+    unit = max(1, 2048 // block)
+    return max(unit, SLICE_ELEMS // max(q, 1) // unit * unit)
+
+
 def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
                   chunk: int = 65536, block: int = 512,
                   engine: str = "auto"):
@@ -76,17 +85,26 @@ def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
     with a smaller distance, or an equal one at a smaller id, so k
     elements would order before it.
 
+    Block selection is folded over corpus chunks of whole blocks, as the
+    reference's XLA engine and ``scan_blockmin_t`` fold it
+    (``hamming.py:181-204, 366-385``): each chunk is one call of
+    :func:`kernels.blockmin.blockmin` on the whole query batch over a view
+    of the corpus (the last chunk's ragged block masked by the kernel's
+    rows-past-``n`` rule), and its ``min << idx_bits | block`` keys merge
+    into a running ``[Q, kb]`` carry. The keys are unique, so the carry
+    ends as the selection over the whole ``[Q, nb]`` matrix would. The
+    rescore of the selected blocks slices the query batch instead, which
+    bounds its ``[Q, kb, block, W]`` gather.
+
     ``chunk`` and ``engine`` are the reference's arguments, kept so its
     callers move over unchanged; neither changes the path or the result.
     The reference pads the corpus to ``chunk`` rows and picks its pass 1
-    by ``engine``: the Pallas kernel K3 or an XLA GEMM folded over corpus
-    chunks, because Mosaic copies a row-major ``[N, 4]`` operand into a
-    32x lane-padded layout that does not fit beyond ~24M codes
-    (``hamming.py:136-146``). The port has one pass 1 for every engine,
-    :func:`kernels.blockmin.blockmin`, which reads the row-major corpus in
-    place; its query slicing bounds the ``[Q, nb]`` matrix. It pads
-    nothing, so ``chunk`` only has to be a multiple of ``block``, as the
-    reference requires. An unknown engine raises."""
+    by ``engine``: the Pallas kernel K3 or an XLA GEMM, because Mosaic
+    copies a row-major ``[N, 4]`` operand into a 32x lane-padded layout
+    that does not fit beyond ~24M codes (``hamming.py:136-146``). The port
+    has one pass 1 for every engine, which reads the row-major corpus in
+    place and pads nothing, so ``chunk`` only has to be a multiple of
+    ``block``, as the reference requires. An unknown engine raises."""
     from verticut_tpu_torch.kernels.blockmin import blockmin
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (one of {ENGINES})")
@@ -100,19 +118,25 @@ def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
                                    device=queries.device), k)
     kb = min(k, nb)
     idx_bits = max(1, (nb - 1).bit_length())
-    biota = torch.arange(nb, dtype=torch.int64, device=db.device)
-    qs = max(1, SLICE_ELEMS // max(nb, kb * block * w))
-    parts_d, parts_i = [], []
-    for q0 in range(0, q, qs):
-        sq = queries[q0:q0 + qs]
-        bm = blockmin(sq, db, n, block)                           # [s, nb]
-        keys = (bm.to(torch.int64) << idx_bits) | biota
-        bidx = select_asc(keys, kb) & ((1 << idx_bits) - 1)
-        del bm, keys
-        d, i = _rescore_blocks(sq, db, n, bidx, k, block)
-        parts_d.append(d)
-        parts_i.append(i)
-    return torch.cat(parts_d), torch.cat(parts_i)
+    cb = _fold_blocks(q, block)
+    top = None
+    for c0 in range(0, nb, cb):
+        c1 = min(c0 + cb, nb)
+        rows = db[c0 * block:min(c1 * block, n)]
+        bm = blockmin(queries, rows, rows.shape[0], block)     # [Q, c1 - c0]
+        keys = (bm.to(torch.int64) << idx_bits) | torch.arange(
+            c0, c1, dtype=torch.int64, device=db.device)
+        del bm
+        top = select_asc(keys if top is None else torch.cat([top, keys], -1),
+                         kb)
+        del keys
+    bidx = top & ((1 << idx_bits) - 1)
+    del top
+    qs = max(1, SLICE_ELEMS // (kb * block * w))
+    parts = [_rescore_blocks(queries[q0:q0 + qs], db, n, bidx[q0:q0 + qs],
+                             k, block) for q0 in range(0, q, qs)]
+    return (torch.cat([d for d, _ in parts]),
+            torch.cat([i for _, i in parts]))
 
 
 def _scan_chunks(queries: torch.Tensor, db: torch.Tensor, k: int,

@@ -2,10 +2,13 @@
 driver, exact and approximate.
 
 Port of ``verticut_tpu/search/single.py``. Per radius stage and per table,
-:func:`radius_step` probes the range directory with every flipped prefix,
-fetches and scores the entry blocks, keeps the table's top-P, merges the
-strips into the pool and applies the stop rule: the exact MIH rule, or in
-approximate mode a full ``k * approximate_factor`` pool.
+:func:`radius_step` probes the table's directory: a range directory with
+every flipped prefix, whose entry blocks it fetches and scores, or a bucket
+directory (dense, sorted, prefix, hash) with every flipped substring, whose
+buckets :func:`expand_buckets` flattens into a fixed candidate budget. It
+keeps the table's top-P, merges the strips into the pool and applies the
+stop rule: the exact MIH rule, or in approximate mode a full
+``k * approximate_factor`` pool.
 :func:`run_pipeline` drives the stages with compaction to shrinking batch
 budgets, an overflow retry ladder and a brute-force scan ladder (the
 fused driver, the default); :func:`_mih_search_loop` runs one stage at a
@@ -46,7 +49,9 @@ import numpy as np
 import torch
 
 from verticut_tpu_torch.bits import as_codes, shr
+from verticut_tpu_torch.codes import hamming_distance
 from verticut_tpu_torch.config import MIHConfig, SearchConfig
+from verticut_tpu_torch.index.directory import RangeDirectory
 from verticut_tpu_torch.index.mih import MIHIndex, MIHTable
 from verticut_tpu_torch.ops import chunks as chunks_lib
 from verticut_tpu_torch.ops import enumeration, topk
@@ -103,8 +108,65 @@ def _take(state: SearchState, sel: torch.Tensor) -> SearchState:
 
 
 # --------------------------------------------------------------------------
+# Candidate-slot expansion: variable bucket sizes -> a fixed budget
+# --------------------------------------------------------------------------
+
+def expand_buckets(starts: torch.Tensor, counts: torch.Tensor, cap: int):
+    """Flatten per-probe ``(start, count)`` ranges into ``cap`` candidate
+    slots: ``int32[Q, C]`` -> ``(entry int32[Q, cap], valid bool[Q, cap],
+    total int32[Q])``. Slot p of query q belongs to the probe whose
+    cumulative-count interval holds p, found by a batched ``searchsorted``
+    over the cumulative counts (as ``ops/chunks`` finds slot owners);
+    slots past ``min(total, cap)`` are invalid and hold ``entry = p``, as
+    the reference's default compare-reduce lowering leaves them. Overflow
+    past ``cap`` is truncated; the caller flags it (``total > cap``)."""
+    q, c = counts.shape
+    cum = torch.cumsum(counts, dim=-1, dtype=torch.int32)          # [Q, C]
+    total = cum[:, -1]
+    p = torch.arange(cap, dtype=torch.int32, device=counts.device)
+    pq = p[None, :].expand(q, cap).contiguous()
+    owner = torch.searchsorted(cum.contiguous(), pq, right=True)   # [Q, cap]
+    oc = owner.clamp(max=c - 1)
+    excl = torch.gather(cum, 1, oc) - torch.gather(counts, 1, oc)
+    entry = torch.where(owner < c, torch.gather(starts, 1, oc) + (pq - excl),
+                        pq)
+    valid = p[None, :] < total.clamp(max=cap)[:, None]
+    return entry, valid, total
+
+
+# --------------------------------------------------------------------------
 # One radius step
 # --------------------------------------------------------------------------
+
+def _table_candidates(table: MIHTable, codes: Optional[torch.Tensor],
+                      queries: torch.Tensor, q_sub: torch.Tensor,
+                      masks: torch.Tensor, done: torch.Tensor, cap: int,
+                      use_bitmap: bool):
+    """Candidates of one bucket table at one radius: every flipped
+    substring is looked up in the directory (gated by the occupancy bitmap
+    with ``use_bitmap``), the buckets are expanded into ``cap`` slots, and
+    each slot's id and code are gathered (the code from ``entry_codes``,
+    else from ``codes`` at the id) and scored. Returns ``(cand_dist [Q,
+    cap], cand_id [Q, cap], total, n_probe, n_nonempty)``."""
+    probes = q_sub[:, None] ^ masks[None, :]                       # [Q, C]
+    starts, counts = table.directory.lookup(probes)
+    if use_bitmap and table.bitmap is not None:
+        counts = torch.where(table.bitmap.get(probes), counts, 0)
+    counts = torch.where(done[:, None], 0, counts)
+    n_probe = torch.where(done, 0, probes.shape[1]).to(torch.int32)
+    n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
+    entry, valid, total = expand_buckets(starts, counts, cap)
+    entry_c = entry.clamp(0, table.entry_ids.shape[0] - 1).long()
+    cand_id = table.entry_ids[entry_c]                             # [Q, cap]
+    if table.entry_codes is not None:
+        cand_codes = table.entry_codes[entry_c]                 # [Q, cap, W]
+    else:
+        cand_codes = codes[cand_id.clamp(0, codes.shape[0] - 1).long()]
+    dist = hamming_distance(cand_codes, queries[:, None, :])
+    return (torch.where(valid, dist, topk.INF_DIST),
+            torch.where(valid, cand_id, topk.INVALID_ID), total, n_probe,
+            n_nonempty)
+
 
 def _table_candidates_range(table: MIHTable, codes: Optional[torch.Tensor],
                             queries: torch.Tensor, q_sub: torch.Tensor,
@@ -112,11 +174,11 @@ def _table_candidates_range(table: MIHTable, codes: Optional[torch.Tensor],
                             cap: int, s_bits: int, blk: int):
     """Candidates of one range table at one radius: one probe per flipped
     prefix fetches the prefix's whole row range of ``blk`` entries per row,
-    from the inline rows, or with ``codes`` given from the compact id rows
-    and ``codes``. Returns ``(cand_dist [Q, S], cand_id [Q, S], n_scored,
-    overflow, n_probe, n_nonempty)``, S = the chunk budget in slots."""
+    from the inline rows, or from the compact id rows and ``codes``.
+    Returns ``(cand_dist [Q, S], cand_id [Q, S], n_scored, overflow,
+    n_probe, n_nonempty)``, S = the chunk budget in slots."""
     d = table.directory
-    compact = codes is not None
+    compact = table.entry_rows is None
     rows = table.entry_idrows if compact else table.entry_rows
     chb = max(4, cap // blk)
     pref = shr(q_sub, s_bits - d.pbits)[:, None] ^ pmasks[None, :]  # [Q, H]
@@ -140,7 +202,7 @@ def _table_candidates_range(table: MIHTable, codes: Optional[torch.Tensor],
 def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
                 masks: torch.Tensor, state: SearchState, *, radius: int,
                 n_tables: int, knn: int, cap: int, s_bits: int, blk: int,
-                approximate: bool = False,
+                approximate: bool = False, use_bitmap: bool = False,
                 codes: Optional[torch.Tensor] = None) -> SearchState:
     """Process one radius group for the whole batch. Exact mode stops a
     query when its kth distance is at most ``(radius + 1) * n_tables``;
@@ -152,8 +214,10 @@ def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
     ``dist << 24 | id`` keys while ids and distances fit them
     (:func:`topk.can_pack`), else explicit ``(dist, id)`` pairs.
     ``blk`` is the tables' entries per row (:meth:`MIHIndex.fetch_block`);
-    ``codes`` is given for the compact layout only and feeds its
-    candidate codes."""
+    ``codes`` (the index's id-ordered codes) feed the candidate codes of
+    compact range tables and of bucket tables without ``entry_codes``.
+    Range tables overflow when a query needs more chunks than the budget,
+    bucket tables when its buckets hold more than ``cap`` entries."""
     w = queries.shape[-1]
     p = state.pool_dist.shape[-1]
     max_id = max(t.n_entries(w) for t in tables)
@@ -161,11 +225,18 @@ def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
     overflow = state.overflow
     total_c = torch.zeros_like(state.n_cands)
     n_probes, n_nonempty = state.n_probes, state.n_nonempty
+    is_range = isinstance(tables[0].directory, RangeDirectory)
     strips = []
     for t in range(n_tables):
-        d, i, tot, ovf, npb, nne = _table_candidates_range(
-            tables[t], codes, queries, q_subs[:, t], masks, state.done, cap,
-            s_bits, blk)
+        if is_range:
+            d, i, tot, ovf, npb, nne = _table_candidates_range(
+                tables[t], codes, queries, q_subs[:, t], masks, state.done,
+                cap, s_bits, blk)
+        else:
+            d, i, tot, npb, nne = _table_candidates(
+                tables[t], codes, queries, q_subs[:, t], masks, state.done,
+                cap, use_bitmap)
+            ovf = tot > cap
         strips.append(topk.table_topk_chunkmin_packed(d, i, p, blk) if packed
                       else topk.table_topk_chunkmin_pos(d, i, p, blk))
         del d, i
@@ -215,21 +286,27 @@ def _check_query_shape(index: MIHIndex, queries: torch.Tensor) -> None:
 
 
 def _cap_for_radius(scfg: SearchConfig, n: int, radii, mask_bits: int,
-                    blk: int) -> int:
-    """Per-radius candidate capacity in slots: one fetch block per probe,
-    twice the uniform-occupancy expectation, and room for one hot range;
-    overflow detection and re-runs cover skewed data."""
+                    blk: int, is_range: bool = True) -> int:
+    """Per-radius candidate capacity in slots, from the uniform-occupancy
+    expectation; overflow detection and re-runs cover skewed data. Range
+    tables: one fetch block per probe, twice the expectation, and room for
+    one hot range. Bucket tables: four times the expectation and the pool,
+    to a power of two."""
     n_m = sum(enumeration.n_masks(mask_bits, r) for r in radii)
     expected = n_m * (n / float(1 << mask_bits))
-    slots = n_m * blk + 2 * int(expected) + 12 * blk
-    cap = -(-slots // (4 * blk)) * (4 * blk)
+    if is_range:
+        slots = n_m * blk + 2 * int(expected) + 12 * blk
+        cap = -(-slots // (4 * blk)) * (4 * blk)
+    else:
+        cap = _pow2ceil(int(4 * expected) + 4 * scfg.pool_size + 128)
     return int(min(scfg.candidate_cap, max(256, cap)))
 
 
 def _radius_schedule(scfg: SearchConfig, cfg: MIHConfig, n: int,
-                     mask_bits: int):
+                     mask_bits: int, is_range: bool = True):
     """Coalesced {0, 1} (exact mode) then one radius per stage, cut where
-    enumerating costs more fetched rows than scanning the corpus."""
+    enumerating costs more than scanning the corpus: for range tables in
+    fetched rows, for bucket tables in probes."""
     max_r = min(scfg.max_enum_radius, mask_bits)
     if scfg.coalesce_radii and not scfg.approximate and max_r >= 1:
         schedule = [(1, (0, 1))] + [(r, (r,)) for r in range(2, max_r + 1)]
@@ -240,8 +317,9 @@ def _radius_schedule(scfg: SearchConfig, cfg: MIHConfig, n: int,
         n_group = sum(enumeration.n_masks(mask_bits, g) for g in group)
         # fetched rows: ~(expected range + one block) per probe, against
         # scanning all n codes once
-        est_rows = n_group * (n / float(1 << mask_bits) + RANGE_BLK)
-        too_dear = est_rows * cfg.n_tables > scfg.fallback_ratio * max(n, 1)
+        cost = (n_group * (n / float(1 << mask_bits) + RANGE_BLK)
+                if is_range else n_group)
+        too_dear = cost * cfg.n_tables > scfg.fallback_ratio * max(n, 1)
         if r > 1 and too_dear:
             break
         out.append((r, group))
@@ -396,11 +474,23 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
 # Entry point
 # --------------------------------------------------------------------------
 
-def _check_supported(scfg: SearchConfig) -> None:
-    if scfg.use_bitmap:
+def _check_bitmap_engine(index: MIHIndex, scfg: SearchConfig) -> None:
+    """``use_bitmap`` gates bucket lookups; the range engine reads whole
+    prefix ranges, whose (start, end) pair answers occupancy anyway, so a
+    bitmap request there raises rather than being ignored."""
+    if scfg.use_bitmap and index.is_range:
         raise ValueError(
             "use_bitmap=True has no effect on the range-directory engine "
-            "(range fetches subsume the occupancy test)")
+            "(range fetches subsume the occupancy test); build with "
+            "directory='dense' or 'hash' and with_bitmap=True to use the "
+            "bitmap filter, or drop use_bitmap")
+
+
+def _index_mask_bits(index: MIHIndex) -> int:
+    """Bits the flip masks run over: a range directory's prefix width
+    (probes are per prefix), else the whole substring."""
+    d = index.tables[0].directory
+    return d.pbits if isinstance(d, RangeDirectory) else index.cfg.s_bits
 
 
 def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
@@ -413,12 +503,12 @@ def _prepare(index: MIHIndex, queries, scfg: SearchConfig):
     queries as a contiguous int32 tensor on the index's device, and the
     radius schedule."""
     scfg = effective_scfg(scfg)
-    _check_supported(scfg)
+    _check_bitmap_engine(index, scfg)
     queries = as_codes(queries, index.device).contiguous()
     _check_query_shape(index, queries)
-    mask_bits = index.tables[0].directory.pbits   # probes are per prefix
     return scfg, queries, _radius_schedule(scfg, index.cfg, index.n,
-                                           mask_bits)
+                                           _index_mask_bits(index),
+                                           index.is_range)
 
 
 def mih_search(index: MIHIndex, queries,
@@ -447,8 +537,8 @@ def _step_fn(index: MIHIndex, scfg: SearchConfig, r: int, cap: int):
         radius_step, tuple(index.tables), radius=r,
         n_tables=index.cfg.n_tables, knn=scfg.knn, cap=cap,
         s_bits=index.cfg.s_bits, blk=index.fetch_block(),
-        approximate=scfg.approximate,
-        codes=index.codes if index.compact else None)
+        approximate=scfg.approximate, use_bitmap=scfg.use_bitmap,
+        codes=index.codes)
 
 
 # --------------------------------------------------------------------------
@@ -540,7 +630,7 @@ def mih_search_dispatch(index: MIHIndex, queries,
     if not scfg.fused:
         return None
     scfg, queries, schedule = _prepare(index, queries, scfg)
-    mask_bits = index.tables[0].directory.pbits
+    mask_bits = _index_mask_bits(index)
     schedule = tuple(
         (r, g) for r, g in schedule
         if sum(enumeration.n_masks(mask_bits, x) for x in g)
@@ -579,10 +669,10 @@ def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
     dev = index.device
     nq = queries.shape[0]
     k, pool_size = scfg.knn, scfg.pool_size
-    mask_bits = index.tables[0].directory.pbits
+    mask_bits = _index_mask_bits(index)
     scan_budget = min(nq, max(64, nq // 64)) if index.codes is not None else 0
     caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
-                                         index.fetch_block())
+                                         index.fetch_block(), index.is_range)
                  for _, g in schedule)
     batch_caps = tuple(
         nq if i == 0 else max(64, nq >> (_stage_shift(k, index.n)
@@ -661,14 +751,14 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
     dev = index.device
     nq = queries.shape[0]
     k, pool_size = scfg.knn, scfg.pool_size
-    mask_bits = index.tables[0].directory.pbits
+    mask_bits = _index_mask_bits(index)
     cur_q, cur_qs = queries, index.table_subs(queries)
     state = init_state(nq, pool_size, dev)
     final = init_state(nq, pool_size, dev)   # retired rows, original order
     orig = torch.arange(nq, device=dev)      # batch row -> original row
     for r, group in schedule:
         cap = _cap or _cap_for_radius(scfg, index.n, group, mask_bits,
-                                      index.fetch_block())
+                                      index.fetch_block(), index.is_range)
         masks = _flip_masks(mask_bits, group, dev)
         step = _step_fn(index, scfg, r, cap)
         b = cur_q.shape[0]
