@@ -36,7 +36,9 @@ Phases (any failure exits non-zero and prints no result):
      driver's exact scan tier and equal the oracle), every id at its
      returned distance; recall against the exact oracle printed;
   8. dispatch / finalize at 1M: two handles in flight, finalized out of
-     order, equal to mih_search on every row;
+     order, equal to mih_search on every row; how long a dispatch takes
+     to return beside one batch's latency; two handles in flight against
+     two batches back to back (s/batch, results equal);
   9. a 64-bit index (MIHConfig(bits=64, n_tables=2), 1M codes) under 8192
      uniform queries: all scan tier (the tensor-core instance at W = 2),
      oracle-equal on 256;
@@ -50,7 +52,19 @@ Phases (any failure exits non-zero and prints no result):
      id's true distance; the radius steps must take the wide-id (_pos)
      selections and the result row the [Q, 2k + 3] layout, and every
      blockmin launch the whole batch of its scan (the folded selection:
-     full-batch corpus chunks, not query slices);
+     full-batch corpus chunks, not query slices); two handles in flight
+     against two batches back to back at k = 10, as in phase 8;
+ 11b. the service: ImageSearchServer on the 1M index of phase 4 and on the
+     100M index, prewarmed (buckets 8 to 128), the port's client over TCP
+     on localhost: search_image_by_id from 1 (1M only), 16 and 64 client
+     threads, a socket each (at 1M also 64 threads over the client's
+     default pool of 20, as the load generator runs), and a search_batch
+     load of uniform codes (the scan tier);
+     QPS and p50/p90/p99 per load beside the card's name and power limit;
+     every served answer against mih_search on the same rows (dists on
+     every row, ids below the kth distance, every id's true distance),
+     the first 64 rows against the popcount oracle; blockmin must launch,
+     on the tensor-core instance only;
  12. the bucket directories at 1M codes, 8192 perturbed queries, k = 10:
      MIHConfig(bits=128, n_tables=8) with default arguments (auto picks
      the dense directory at 16-bit substrings), without and with the
@@ -69,7 +83,7 @@ Phases (any failure exits non-zero and prints no result):
      its scan.
 Phases 4 to 13 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
-(phases 4, 11, 12 and 13) must go through the tensor-core instance. The
+(phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance. The
 line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -78,13 +92,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -230,14 +247,18 @@ def whole_batch_scans(kb):
     linear_search call it) and every blockmin call inside one. Yields a
     dict: ``scans``, the query counts of the scans; ``split``, the calls
     whose query count was not their scan's whole batch. The kernel's own
-    launch counts stay the wrapper's."""
+    launch counts stay the wrapper's. Scans run on the dispatch workers,
+    two at once: each thread keeps its own stack of open scans."""
     from verticut_tpu_torch.ops import hamming
     from verticut_tpu_torch.search import single
     rec = {"scans": [], "split": 0}
-    scan, launch, cur = hamming.scan_blockmin, kb.blockmin, []
+    scan, launch = hamming.scan_blockmin, kb.blockmin
+    local, lock = threading.local(), threading.Lock()
 
     def scan_rec(queries, *a, **kw):
-        rec["scans"].append(queries.shape[0])
+        cur = local.__dict__.setdefault("cur", [])
+        with lock:
+            rec["scans"].append(queries.shape[0])
         cur.append(queries.shape[0])
         try:
             return scan(queries, *a, **kw)
@@ -245,7 +266,9 @@ def whole_batch_scans(kb):
             cur.pop()
 
     def launch_rec(queries, *a, **kw):
-        rec["split"] += not cur or queries.shape[0] != cur[-1]
+        cur = local.__dict__.setdefault("cur", [])
+        with lock:
+            rec["split"] += not cur or queries.shape[0] != cur[-1]
         return launch(queries, *a, **kw)
 
     with patched((hamming, "scan_blockmin", scan_rec),
@@ -260,10 +283,12 @@ def counted_merges():
     and ``packed``."""
     from verticut_tpu_torch.ops import topk
     merges = {"pos": 0, "packed": 0}
+    lock = threading.Lock()
 
     def counted(name, fn):
         def wrapper(*a, **kw):
-            merges[name] += 1
+            with lock:
+                merges[name] += 1
             return fn(*a, **kw)
         return wrapper
 
@@ -551,6 +576,32 @@ def dispatch_phase(torch, index, q_dev, scfg):
     log(f"dispatch/finalize 1M k={scfg.knn}: two handles in flight, "
         f"finalized out of order, equal to mih_search on all {len(q_dev)} "
         f"rows; packed row {tuple(h1.packed.shape)}")
+    in_flight(torch, f"1M k={scfg.knn}", index, q_dev, scfg, want)
+
+
+def in_flight(torch, name, index, q, scfg, want, reps=5):
+    """Two batches back to back against two handles in flight, in turns,
+    ``reps`` times each (``breakdown.profile_pair``, unprofiled): every
+    result equal to ``want``. Prints the medians' s/batch and how long a
+    dispatch takes to return beside one batch's latency; asserts
+    equality, not speed."""
+    from verticut_tpu_torch.breakdown import profile_pair
+
+    def equal(mode, res):
+        for f in want._fields:
+            check(torch.equal(getattr(res, f), getattr(want, f)),
+                  f"{name}: {mode} {f} != mih_search")
+
+    rec = profile_pair(index, q, scfg, reps=reps, check=equal, profile=False)
+    seq, par = rec["back_to_back"], rec["in_flight"]
+    log(f"{name}: mih_search_dispatch returned in "
+        f"{par['dispatch_s'] * 1e3:.2f} ms (one batch's latency "
+        f"{seq['batch_s'] * 1e3:.2f} ms); two handles in flight "
+        f"{par['batch_s']:.4f} s/batch against two batches back to back "
+        f"{seq['batch_s']:.4f} s/batch (medians of {reps}; runs in flight "
+        f"{', '.join(f'{t:.4f}' for t in par['runs_s'])}, back to back "
+        f"{', '.join(f'{t:.4f}' for t in seq['runs_s'])}); results equal")
+    return rec
 
 
 def narrow_phase(torch, kb, kp, dev, scfg):
@@ -578,7 +629,8 @@ def narrow_phase(torch, kb, kp, dev, scfg):
 
 def scale_phase(torch, kb, dev, k10, k100):
     """Phase 11: bench.py's scale branch at the reference's default 100M
-    codes. Returns the phase's blockmin launches."""
+    codes. Returns the phase's blockmin launches, in all and by instance
+    (both read before the in-flight comparison), and the index."""
     from verticut_tpu_torch import bench, bits, codes
     torch.cuda.reset_peak_memory_stats()
     index, info = bench.make_index(N_SCALE, dev)
@@ -638,7 +690,143 @@ def scale_phase(torch, kb, dev, k10, k100):
         f"({merges['pos']} merges, 0 packed); blockmin launches "
         f"{kb.launches}, each on its scan's whole batch (scans of "
         f"{sorted(set(scans['scans']))} queries)")
-    return kb.launches
+    launches, by_instance = kb.launches, dict(kb.launches_by_instance)
+    in_flight(torch, "100M k=10", index, q, k10, out["100M k=10"])
+    return launches, by_instance, index
+
+
+def served_rows(torch, name, rows, k):
+    """Served answers (lists of ``[id, dist]`` pairs) as ``(dists, ids)``
+    host tensors ``[R, k]``; every row must hold k."""
+    check(all(len(r) == k for r in rows), f"{name}: a served row holds "
+          f"fewer than {k} results")
+    pairs = torch.tensor(rows, dtype=torch.int32).reshape(len(rows), k, 2)
+    return pairs[..., 1].contiguous(), pairs[..., 0].contiguous()
+
+
+def check_served(torch, name, index, q, dists, ids, k):
+    """Served ``(dists, ids)`` of the query rows ``q`` (on the card)
+    against the port's mih_search on the same rows: dists on every row,
+    ids below the kth distance (counting the rows with other ids at it),
+    every id's true distance; the first 64 rows against the popcount
+    oracle. Returns the two tie counts."""
+    from verticut_tpu_torch import codes
+    from verticut_tpu_torch.config import SearchConfig
+    from verticut_tpu_torch.search import mih_search
+    served = SimpleNamespace(dists=dists, ids=ids)
+    want = mih_search(index, q, SearchConfig(knn=k))
+    true_d = codes.hamming_distance(index.codes[ids.to(q.device).long()],
+                                    q[:, None, :])
+    check(torch.equal(true_d.cpu(), dists),
+          f"{name}: served ids disagree with their dists")
+    od, oi = oracle(q[:64], index.codes, k)
+    first = SimpleNamespace(dists=dists[:64], ids=ids[:64])
+    return (tie_equal(torch, f"{name} vs mih_search", served, want.dists,
+                      want.ids),
+            tie_equal(torch, f"{name} vs the oracle", first, od, oi))
+
+
+def service_phase(torch, kb, kp, indexes, smi):
+    """Phase 11b: the RPC service on each ``(name, index, by-id loads)``
+    over TCP on localhost; a load is ``(client threads, requests, client
+    pool sockets)``. Returns the blockmin launches by instance that the
+    served requests made, summed over the indexes: counted from after the
+    prewarm until the server stops, before the answers are checked."""
+    from verticut_tpu_torch import bits, codes
+    from verticut_tpu_torch.service import ImageSearchClient, ImageSearchServer
+    from verticut_tpu_torch.tools.image_search_test import pcts, run_load
+    k, rows, n_batch, threads_batch = 10, 256, 4, 4
+    by_instance = dict.fromkeys(kb.INSTANCES, 0)
+    for name, index, loads in indexes:
+        t_phase = time.perf_counter()
+        srv = ImageSearchServer(index, port=0, default_knn=k).start()
+        clients = {}
+        try:
+            t0 = time.perf_counter()
+            srv.prewarm(max_rows=128)
+            log(f"service {name}: prewarm (buckets 8-128) "
+                f"{time.perf_counter() - t0:.2f} s")
+            zero_counts(kb, kp)
+            rng = np.random.default_rng(len(name))
+            qids, served = [], {}
+            for threads, n, pool in loads:
+                if pool not in clients:
+                    clients[pool] = ImageSearchClient(port=srv.port,
+                                                      pool=pool, timeout=300)
+                cli = clients[pool]
+                ids = rng.integers(0, index.n, n).tolist()
+                # as the load generator: the arrival shapes and the
+                # client's connections first, then the measured load
+                run_load(cli, ids[:2 * max(threads, 4)], k, threads)
+                dt, lats, res = run_load(cli, ids, k, threads)
+                qids += ids
+                served.update(res)
+                log(f"service {name} search_image_by_id k={k}, "
+                    f"{max(threads, 1)} client thread(s) over {pool} "
+                    f"socket(s), {n} requests: {n / dt:.1f} QPS, "
+                    f"p50/p90/p99 {pcts(lats)} ms; {smi}")
+            cli = clients[max(clients)]
+            qids = sorted(set(qids))
+            # uniform codes in search_batch requests: the scan tier
+            u = codes.random_codes(99, n_batch * threads_batch * rows, 128)
+            blobs = [codes.unpack_to_bytes(u[i:i + rows]).tobytes()
+                     for i in range(0, len(u), rows)]
+            lats, got, errs = [], [None] * len(blobs), []
+
+            def batch_client(j):
+                try:
+                    for b in range(j, len(blobs), threads_batch):
+                        t1 = time.perf_counter()
+                        got[b] = cli.search_batch(blobs[b], k)
+                        lats.append(time.perf_counter() - t1)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(e)
+
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=batch_client, args=(j,))
+                  for j in range(threads_batch)]
+            [t.start() for t in ts]
+            [t.join(timeout=300) for t in ts]
+            dt = time.perf_counter() - t0
+            check(not errs and not any(t.is_alive() for t in ts),
+                  f"service {name} search_batch: {errs or 'a client hung'}")
+            log(f"service {name} search_batch k={k}, {threads_batch} client "
+                f"threads, {len(blobs)} requests of {rows} uniform codes: "
+                f"{len(blobs) / dt:.1f} requests/s ({len(u) / dt:.0f} "
+                f"codes/s), p50/p90/p99 {pcts(sorted(lats))} ms; {smi}")
+            st = cli.stats()
+        finally:
+            for c in clients.values():
+                c.close()
+            srv.stop()
+        served_by = dict(kb.launches_by_instance)
+        for inst, n in served_by.items():
+            by_instance[inst] += n
+        dev = index.device
+        q_id = index.codes[torch.tensor(qids, device=dev)]
+        d_id, i_id = served_rows(torch, f"service {name}",
+                                 [served[q] for q in qids], k)
+        d_u, i_u = served_rows(torch, f"service {name} batch",
+                               [r for g in got for r in g], k)
+        ties = [check_served(torch, f"service {name} {what}", index, q, d, i,
+                             k)
+                for what, q, d, i in (("by id", q_id, d_id, i_id),
+                                      ("batch", bits.as_codes(u, dev), d_u,
+                                       i_u))]
+        log(f"service {name}: {len(qids)} distinct by-id rows and {len(u)} "
+            f"uniform rows served, every answer equal to mih_search in dists "
+            f"and in ids below the kth distance (rows with other ids at it: "
+            f"by id {ties[0][0]}, batch {ties[1][0]}; vs the oracle on 64: "
+            f"{ties[0][1]}, {ties[1][1]}), every id at its distance; "
+            f"{st['n_requests']} rows in {st['n_batches']} batches; blockmin "
+            f"launches while serving {served_by}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        check(served_by["tensor"] > 0,
+              f"service {name}: the served requests launched no "
+              f"tensor-core blockmin kernel ({served_by})")
+    check(by_instance["tensor"] > 0 and by_instance["generic"] == 0,
+          f"service: blockmin launches {by_instance}")
+    return by_instance
 
 
 def bucket_phase(torch, kb, kp, dev, packed, q_dev, k10):
@@ -721,7 +909,9 @@ def billion_phase(torch, kb, kp, dev, k10):
     with counted_merges() as merges, whole_batch_scans(kb) as scans:
         for name, qs in (("1B k=10", q), ("1B uniform k=10", u)):
             before = kb.launches
+            torch.cuda.reset_peak_memory_stats()
             c = bench.cell(index, qs, k10, 4, 1)
+            peak = torch.cuda.max_memory_allocated()
             check(c["handle"] is not None and tuple(
                 c["handle"].packed.shape) == (Q, 2 * k10.knn + 3),
                 f"{name}: the result row is not [Q, 2k + 3]")
@@ -732,7 +922,9 @@ def billion_phase(torch, kb, kp, dev, k10):
                 f"{c['pipelined_batch_s']:.4f} s/batch, {c['qps']:.0f} "
                 f"queries/s; radius histogram "
                 f"{torch.bincount(c['result'].radius).tolist()}; blockmin "
-                f"launches {kb.launches - before}")
+                f"launches {kb.launches - before}; peak device memory over "
+                f"the cell (the depth-4 pipeline) {peak / 2**30:.2f} GiB "
+                f"(max_memory_allocated)")
     check(merges["pos"] > 0 and merges["packed"] == 0,
           f"1B: the radius steps' merges were {merges}, not all _pos")
     check(scans["split"] == 0, f"1B: {scans['split']} blockmin launches "
@@ -850,7 +1042,7 @@ def main() -> int:
     loop_phase(torch, kb, index, q_dev, u_dev, k10)
     approx_phase(torch, kb, index, q_dev, k10)
     dispatch_phase(torch, index, q_dev, k10)
-    del index, u_dev, db
+    del u_dev, db          # the 1M index stays for the service phase
     torch.cuda.empty_cache()
 
     # 9. a 64-bit index: the tensor-core instance at W = 2 on the scan tier
@@ -868,12 +1060,28 @@ def main() -> int:
 
     # 11. scale
     zero_counts(kb, kp)
-    scale_launches = scale_phase(torch, kb, dev, k10, k100)
-    scale_by_instance = dict(kb.launches_by_instance)
+    scale_launches, scale_by_instance, index_100m = scale_phase(
+        torch, kb, dev, k10, k100)
     log(f"100M phase blockmin launches by instance: {scale_by_instance}")
     check(scale_by_instance["tensor"] > 0,
           "the 100M phase launched no tensor-core blockmin kernel")
+
+    # 11b. the service on the 1M and 100M indexes (counts zeroed inside,
+    # after each prewarm)
+    # 64 sockets: a thread per socket; 20, the client's default, as the
+    # load generator runs it
+    service_by_instance = service_phase(
+        torch, kb, kp,
+        (("1M", index, ((0, 64, 64), (16, 400, 64), (64, 400, 64),
+                        (64, 400, 20))),
+         ("100M", index_100m, ((16, 256, 64), (64, 256, 64)))), smi)
+    log(f"service phase blockmin launches by instance: "
+        f"{service_by_instance}")
+    del index, index_100m
+    gc.collect()           # a server and its socket server hold each other
     torch.cuda.empty_cache()
+    log(f"after the service phase: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated")
 
     # 12. the bucket directories (counts zeroed inside)
     bucket_by_instance = bucket_phase(torch, kb, kp, dev, packed, q_dev, k10)
@@ -896,6 +1104,7 @@ def main() -> int:
          "scale_launches": scale_launches,
          "scale_launches_by_instance": scale_by_instance,
          "bucket_launches_by_instance": bucket_by_instance,
+         "service_launches_by_instance": service_by_instance,
          "launches_1b": sum(billion_by_instance.values()),
          "launches_1b_by_instance": billion_by_instance,
          "max_abs_err": max_err["blockmin"],

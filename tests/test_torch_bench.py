@@ -89,7 +89,35 @@ def test_breakdown_cell_on_cpu():
     assert len(rec["walls_s"]) == 3 and rec["wall_s"] > 0
     assert rec["device_s"] is None and rec["idle"] is None
     assert rec["kernels"] == 0 and rec["top"] == []
+    assert rec["launch_cpu_s"] == rec["sync_cpu_s"] == 0
     assert rec["blockmin"] == {"tensor": 0, "generic": 0}
+
+
+def test_breakdown_pair_on_cpu():
+    """Two batches back to back against two handles in flight, timed in
+    turns and profiled, every result checked; on the CPU there are no
+    device intervals."""
+    from verticut_tpu_torch.config import SearchConfig
+    from verticut_tpu_torch.search import mih_search
+    index, _ = bench.make_index(3000, CPU)
+    q = bench.perturbed_queries(np.random.default_rng(3), index.codes, 64)
+    want, seen = mih_search(index, q, SearchConfig()), []
+
+    def check(mode, res):
+        seen.append(mode)
+        assert all(torch.equal(getattr(res, f), getattr(want, f))
+                   for f in want._fields), mode
+
+    rec = breakdown.profile_pair(index, q, SearchConfig(), reps=2,
+                                 check=check)
+    assert set(rec) == {"back_to_back", "in_flight"}
+    # a warm-up, two timed runs and a profiled one, two batches each
+    assert seen.count("back_to_back") == seen.count("in_flight") == 8
+    assert 0 < rec["in_flight"]["dispatch_s"]
+    for mode in rec.values():
+        assert len(mode["runs_s"]) == 2 and mode["batch_s"] > 0
+        assert mode["kernels"] == 0
+        assert mode["device_s"] is None and mode["concurrent_s"] is None
 
 
 def test_union_of_intervals():

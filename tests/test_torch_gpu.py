@@ -10,6 +10,8 @@ JAX it runs apart from tests/conftest.py:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -285,6 +287,35 @@ def test_dispatch_copies_to_pinned_memory_behind_an_event(cuda_device):
     want = mih_search(index, q, scfg)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_dispatch_runs_on_a_worker_stream(cuda_device, monkeypatch):
+    """The fused pipeline runs on a worker thread, on that thread's own
+    CUDA stream, not the caller's; two handles in flight equal
+    mih_search."""
+    from verticut_tpu_torch.search import single
+    packed = codes.clustered_codes(4, 100_000, 128, n_clusters=500,
+                                   flip_p=0.02)
+    index = build_index(packed, MIHConfig(), device=cuda_device)
+    q = bits.as_codes(packed[:300] ^ np.uint32(9), cuda_device)
+    scfg = SearchConfig(knn=10)
+    want = mih_search(index, q, scfg)
+    seen, fused_row = [], single._fused_row
+
+    def spy(*a, **kw):
+        seen.append((threading.get_ident(), torch.cuda.current_stream()))
+        return fused_row(*a, **kw)
+
+    monkeypatch.setattr(single, "_fused_row", spy)
+    caller = torch.cuda.current_stream()
+    handles = [mih_search_dispatch(index, q, scfg) for _ in range(2)]
+    got = [mih_search_finalize(h) for h in handles]
+    assert len(seen) >= 2
+    for thread, stream in seen:
+        assert thread != threading.get_ident() and stream != caller
+    for res in got:
+        for f in want._fields:
+            assert torch.equal(getattr(res, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("method", METHODS)

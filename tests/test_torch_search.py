@@ -4,9 +4,12 @@ Equal dists, ids, radius, n_probes, n_nonempty and n_cands (tolerance 0)
 on the same corpus, index and queries."""
 
 import dataclasses
+import itertools
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -390,6 +393,115 @@ def test_dispatch_finalize_out_of_order_matches_jax():
                               np.asarray(getattr(want, f))), f
 
 
+@pytest.fixture(scope="module")
+def small():
+    """2000 uniform codes in both packages, 64 queries at k = 7."""
+    rng = np.random.default_rng(42)
+    packed = jcodes.pack_bytes(
+        rng.integers(0, 256, size=(2000, 16), dtype=np.uint8))
+    q = packed[:64] ^ np.uint32(3)
+    return (build_index(packed, CFG, device="cpu"), q, SearchConfig(knn=7),
+            jax_mih_search(jax_build_index(packed, CFG, directory="range"),
+                           q, SearchConfig(knn=7)))
+
+
+def _assert_equal_results(got, want):
+    for f in FIELDS:
+        assert np.array_equal(getattr(got, f).numpy(),
+                              np.asarray(getattr(want, f))), f
+
+
+def test_dispatch_returns_while_the_pipeline_is_blocked(small, monkeypatch):
+    """dispatch hands the pipeline to a worker and returns at once: here
+    the pipeline is held on an event, and dispatch returns all the same;
+    once released, finalize equals mih_search and JAX."""
+    index, q, scfg, want = small
+    started, release = threading.Event(), threading.Event()
+    fused_row = single._fused_row
+
+    def blocked(*a, **kw):
+        started.set()
+        if not release.wait(timeout=60):
+            raise TimeoutError("never released")
+        return fused_row(*a, **kw)
+
+    monkeypatch.setattr(single, "_fused_row", blocked)
+    h = mih_search_dispatch(index, q, scfg)
+    try:
+        assert started.wait(timeout=60)
+        assert not h.future.done() and not release.is_set()
+    finally:
+        release.set()          # a failed check must not hold the worker
+    got = mih_search_finalize(h)
+    monkeypatch.setattr(single, "_fused_row", fused_row)
+    _assert_equal_results(got, want)
+    _assert_equal_results(got, mih_search(index, q, scfg))
+
+
+def test_dispatch_worker_error_surfaces_from_finalize(small, monkeypatch):
+    """An exception in the worker is raised by finalize (and by the
+    handle's fields) with its own type; dispatch itself does not raise."""
+    index, q, scfg, _ = small
+
+    def boom(*a, **kw):
+        raise KeyError("injected pipeline failure")
+
+    monkeypatch.setattr(single, "_fused_row", boom)
+    h = mih_search_dispatch(index, q, scfg)
+    with pytest.raises(KeyError, match="injected"):
+        mih_search_finalize(h)
+    with pytest.raises(KeyError):
+        h.packed
+
+
+def test_second_dispatch_queues_behind_the_first(small, monkeypatch):
+    """A device runs one pipeline at a time: a second dispatch returns at
+    once, and its pipeline starts only when the first one has finished."""
+    index, q, scfg, want = small
+    log, a_runs, release = [], threading.Event(), threading.Event()
+    fused_row = single._fused_row
+
+    def traced(index, queries, *a):
+        name = "A" if queries.shape[0] == 64 else "B"
+        log.append(f"{name} runs")
+        if name == "A":
+            a_runs.set()
+            if not release.wait(timeout=60):
+                raise TimeoutError("never released")
+        out = fused_row(index, queries, *a)
+        log.append(f"{name} ends")
+        return out
+
+    monkeypatch.setattr(single, "_fused_row", traced)
+    h_a = mih_search_dispatch(index, q, scfg)
+    try:
+        assert a_runs.wait(timeout=60)
+        h_b = mih_search_dispatch(index, q[:40], scfg)
+        time.sleep(0.2)            # B would start here if it did not queue
+        assert log == ["A runs"] and not h_b.future.done()
+    finally:
+        release.set()          # a failed check must not hold the worker
+    got = mih_search_finalize(h_b), mih_search_finalize(h_a)
+    monkeypatch.setattr(single, "_fused_row", fused_row)
+    assert log == ["A runs", "A ends", "B runs", "B ends"]
+    _assert_equal_results(got[1], want)
+    _assert_equal_results(got[0], mih_search(index, q[:40], scfg))
+
+
+@pytest.mark.parametrize("order", list(itertools.permutations(range(3))))
+def test_three_dispatches_finalized_in_any_order(small, order):
+    """Three handles in flight (one runs, two queue behind it), each
+    with its own batch, finalized in every order: each equals its
+    synchronous search, and the first equals JAX."""
+    index, q, scfg, want = small
+    batches = [q, q[::-1].copy(), q[:40]]
+    handles = [mih_search_dispatch(index, b, scfg) for b in batches]
+    got = {i: mih_search_finalize(handles[i]) for i in order}
+    _assert_equal_results(got[0], want)
+    for i, b in enumerate(batches):
+        _assert_equal_results(got[i], mih_search(index, b, scfg))
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_overflow_to_scan_matches_jax(monkeypatch, fused):
     """The JAX package's merged-ladder test: tiny caps overflow nearly
@@ -429,9 +541,13 @@ def test_port_imports_no_jax():
         "verticut_tpu_torch.kernels.blockmin, "
         "verticut_tpu_torch.kernels.pairwise, verticut_tpu_torch.bench, "
         "verticut_tpu_torch.oracle_drive, "
-        "verticut_tpu_torch.index.integrity\n"
+        "verticut_tpu_torch.index.integrity, verticut_tpu_torch.breakdown, "
+        "verticut_tpu_torch.service, verticut_tpu_torch.service.wire, "
+        "verticut_tpu_torch.utils, "
+        "verticut_tpu_torch.tools.image_server, "
+        "verticut_tpu_torch.tools.image_search_test\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'verticut_tpu')]\n"
+        "('jax', 'jaxlib', 'verticut_tpu', 'msgpack')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,

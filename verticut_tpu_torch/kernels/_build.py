@@ -16,6 +16,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Sequence
 
 import torch
@@ -31,6 +32,15 @@ HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# one lock per library: threads of one process (dispatch workers) share a
+# pid and so a temporary file; different libraries still build in parallel
+_locks: Dict[str, threading.RLock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(name: str) -> threading.RLock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.RLock())
 
 
 def source(name: str) -> str:
@@ -65,20 +75,22 @@ def _host_cxx() -> str:
 def build(name: str) -> None:
     """Compile ``csrc/<name>.cu`` with nvcc, or ``csrc/<name>.cc`` with the
     host compiler, if its library is missing or older than the source."""
-    src, lib = source(name), lib_path(name)
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
-        return
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = ([_nvcc(), *NVCC_FLAGS] if src.endswith(".cu")
-           else [_host_cxx(), *HOST_FLAGS]) + ["-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
-            f"{build_logs[name]}")
-    os.replace(tmp, lib)
+    with _lock(name):
+        src, lib = source(name), lib_path(name)
+        if (os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            return
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = ([_nvcc(), *NVCC_FLAGS] if src.endswith(".cu")
+               else [_host_cxx(), *HOST_FLAGS]) + ["-o", tmp, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_logs[name] = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
+                f"{build_logs[name]}")
+        os.replace(tmp, lib)
 
 
 def load(name: str, entries: Dict[str, Sequence]) -> ctypes.CDLL:
@@ -87,17 +99,18 @@ def load(name: str, entries: Dict[str, Sequence]) -> ctypes.CDLL:
     every entry function returns an int (a CUDA library's, a
     ``cudaError_t``), and every CUDA library exports ``const char*
     vt_error_string(int)``."""
-    if name not in _libs:
-        build(name)
-        lib = ctypes.CDLL(lib_path(name))
-        for fn, argtypes in entries.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        if source(name).endswith(".cu"):
-            lib.vt_error_string.argtypes = [ctypes.c_int]
-            lib.vt_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+    with _lock(name):
+        if name not in _libs:
+            build(name)
+            lib = ctypes.CDLL(lib_path(name))
+            for fn, argtypes in entries.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            if source(name).endswith(".cu"):
+                lib.vt_error_string.argtypes = [ctypes.c_int]
+                lib.vt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -27,6 +27,7 @@ no caller fixes up the tail.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -43,6 +44,8 @@ INSTANCES: Tuple[str, ...] = ("tensor", "generic")
 #: twin), and the same launches by instance
 launches = 0
 launches_by_instance: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
+# the counts are bumped from dispatch worker threads
+_count_lock = threading.Lock()
 
 #: elements of the twin's [Q, rows, W] temporaries per corpus chunk
 _TWIN_CHUNK_ELEMS = 1 << 25
@@ -142,7 +145,6 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
     if queries.device.type == "cpu":
         return blockmin_reference(queries, db, n, block)
     _build.check_kernel_operands(NAME, queries, db)
-    global launches
     lib = _load()
     nq, w = queries.shape
     which = instance(w, block)
@@ -156,6 +158,13 @@ def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
                               out.data_ptr(), nq, n, db.shape[0], w, block,
                               which == "tensor", stream)
     _build.check_launch(lib, err, "blockmin")
-    launches += 1
-    launches_by_instance[which] += 1
+    _count(which)
     return out
+
+
+def _count(which: str) -> None:
+    """One launch of instance ``which``."""
+    global launches
+    with _count_lock:
+        launches += 1
+        launches_by_instance[which] += 1

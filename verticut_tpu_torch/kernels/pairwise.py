@@ -16,6 +16,7 @@ This is the counterpart of the TPU kernel K4 ``pallas_pairwise_hamming``
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -28,6 +29,8 @@ SOURCE = _build.source(NAME)
 #: kernel launches made by :func:`pairwise`, either instance (never by the
 #: twin)
 launches = 0
+# the count is bumped from dispatch worker threads
+_count_lock = threading.Lock()
 
 #: elements of the twin's [Q, rows, W] temporaries per corpus chunk
 _TWIN_CHUNK_ELEMS = 1 << 25
@@ -66,7 +69,6 @@ def pairwise(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     if queries.device.type == "cpu":
         return pairwise_reference(queries, db)
     _build.check_kernel_operands(NAME, queries, db)
-    global launches
     lib = _load()
     nq, n = queries.shape[0], db.shape[0]
     out = torch.empty((nq, n), dtype=torch.int32, device=queries.device)
@@ -77,5 +79,12 @@ def pairwise(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
         err = lib.vt_pairwise(queries.data_ptr(), db.data_ptr(),
                               out.data_ptr(), nq, n, queries.shape[1], stream)
     _build.check_launch(lib, err, "pairwise")
-    launches += 1
+    _count()
     return out
+
+
+def _count() -> None:
+    """One launch."""
+    global launches
+    with _count_lock:
+        launches += 1

@@ -18,17 +18,20 @@ fall-through when no radius stage fits ``fused_max_masks``).
 caps and scans what remains.
 
 The fused driver is split as the reference splits it:
-:func:`mih_search_dispatch` runs the pipeline up to the packed result row
-(:func:`_pack_row`) and starts its copy to the host;
-:func:`mih_search_finalize` waits for the copy, decodes the row and runs
-the fallbacks. :func:`mih_search` is the two back to back.
+:func:`mih_search_dispatch` hands the pipeline up to the packed result row
+(:func:`_pack_row`) and its copy to the host to a worker thread and
+returns at once; :func:`mih_search_finalize` joins the worker, waits for
+the copy, decodes the row and runs the fallbacks. :func:`mih_search` is
+the two back to back.
 
 Where the reference's single device program branches with ``lax.cond``,
 the port reads a scalar from the device and branches on the host (about
-nine reads per batch), so a dispatch returns only once most of its device
-work is done. The fused driver returns the stats as the packed row
-carries them: ``radius`` saturated at 127 and ``n_probes`` at 0xFFFF; the
-loop driver, as the reference's, saturates neither.
+nine reads per batch). Those reads wait for the card on the worker, not on
+the caller: each device has one worker thread with its own CUDA stream,
+and further dispatches queue behind its pipeline. The fused driver
+returns the stats as the packed row carries them: ``radius`` saturated at
+127 and ``n_probes`` at 0xFFFF; the loop driver, as the reference's,
+saturates neither.
 
 Ids of 2^24 and more do not fit the packed ``dist << 24 | id`` selection
 keys: the radius step then keeps explicit ``(dist, id)`` strips (the
@@ -43,7 +46,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -546,18 +551,74 @@ def _step_fn(index: MIHIndex, scfg: SearchConfig, r: int, cap: int):
 # --------------------------------------------------------------------------
 
 class FusedHandle(NamedTuple):
-    """An in-flight fused search: the packed result row on the index's
-    device (see :func:`_pack_row`), its host copy and the CUDA event that
-    marks the copy done (on the CPU: the row itself and no event), and
-    what finalize needs besides."""
+    """An in-flight fused search: the worker's future, and what finalize
+    needs besides. ``packed``, ``host`` and ``event`` wait for the worker
+    and re-raise its exception: the packed result row on the index's
+    device (see :func:`_pack_row`; on CUDA it lies on the worker's
+    stream, so read it after finalize), its host copy and the CUDA event
+    that marks the copy done (on the CPU: the row itself and no event)."""
 
-    packed: torch.Tensor     # int32 [Q, k + 3] or [Q, 2k + 3]
-    host: torch.Tensor       # the same row on the host (pinned on CUDA)
-    event: Optional["torch.cuda.Event"]
+    future: "Future"         # -> (packed, host, event)
     queries: torch.Tensor
     index: MIHIndex
     scfg: SearchConfig
     cap: Optional[int]
+
+    @property
+    def packed(self) -> torch.Tensor:   # int32 [Q, k + 3] or [Q, 2k + 3]
+        return self.future.result()[0]
+
+    @property
+    def host(self) -> torch.Tensor:     # pinned on CUDA
+        return self.future.result()[1]
+
+    @property
+    def event(self) -> Optional["torch.cuda.Event"]:
+        return self.future.result()[2]
+
+
+_pools: Dict[torch.device, ThreadPoolExecutor] = {}
+_pools_lock = threading.Lock()
+# a CUDA device's worker stream, used by that device's worker alone
+_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _pool(device: torch.device) -> ThreadPoolExecutor:
+    """The device's pipeline worker: one thread, dispatches queue."""
+    with _pools_lock:
+        if device not in _pools:
+            _pools[device] = ThreadPoolExecutor(
+                1, thread_name_prefix=f"fused-{device}")
+        return _pools[device]
+
+
+def _fused_worker(index: MIHIndex, queries: torch.Tensor,
+                  scfg: SearchConfig, _cap: Optional[int], schedule,
+                  ready: Optional["torch.cuda.Event"], n_threads: int):
+    """The fused pipeline on the device's worker thread: ``(packed, host,
+    event)``. On CUDA it runs on the worker's own stream, behind ``ready``
+    (recorded on the caller's stream once the queries were there), and
+    starts the row's copy into pinned host memory with an event behind
+    it; on the CPU it takes the caller's intra-op thread count."""
+    dev = index.device
+    if ready is None:
+        if torch.get_num_threads() != n_threads:
+            torch.set_num_threads(n_threads)
+        packed = _fused_row(index, queries, scfg, _cap, schedule)
+        return packed, packed, None
+    if dev not in _streams:
+        _streams[dev] = torch.cuda.Stream(dev)
+    s = _streams[dev]
+    with torch.cuda.device(dev), torch.cuda.stream(s):
+        s.wait_event(ready)
+        # the caller's allocation: keep it from reuse until s is past it
+        queries.record_stream(s)
+        packed = _fused_row(index, queries, scfg, _cap, schedule)
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(s)
+    return packed, host, event
 
 
 def _result_id_bits(tables, bits: int) -> int:
@@ -620,13 +681,15 @@ def mih_search_dispatch(index: MIHIndex, queries,
                         scfg: SearchConfig = SearchConfig(),
                         _cap: Optional[int] = None
                         ) -> Optional[FusedHandle]:
-    """The fused driver up to the packed result row, on the index's
-    device; on CUDA the row's copy into pinned host memory is started and
-    an event recorded behind it, and the call returns without waiting for
-    the copy. Returns None where the fused driver does not run this
-    request (``scfg.fused`` off, or no radius stage under
-    ``fused_max_masks``). Pair with :func:`mih_search_finalize`; several
-    handles may be in flight and finalized in any order."""
+    """Launch the fused driver WITHOUT waiting for it: the request is
+    checked and its queries moved to the index's device here, and the
+    pipeline up to the packed result row, with the row's copy to the host
+    (pinned, behind a CUDA event), runs on the device's worker thread
+    (one pipeline at a time; more queue). Returns None where the
+    fused driver does not run this request (``scfg.fused`` off, or no
+    radius stage under ``fused_max_masks``). Pair with
+    :func:`mih_search_finalize`; several handles may be in flight and
+    finalized in any order."""
     if not scfg.fused:
         return None
     scfg, queries, schedule = _prepare(index, queries, scfg)
@@ -637,25 +700,25 @@ def mih_search_dispatch(index: MIHIndex, queries,
         <= scfg.fused_max_masks)
     if not schedule:
         return None
-    packed = _fused_row(index, queries, scfg, _cap, schedule)
-    if packed.is_cuda:
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        with torch.cuda.device(packed.device):
-            host.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-    else:
-        host, event = packed, None
-    return FusedHandle(packed=packed, host=host, event=event,
-                       queries=queries, index=index, scfg=scfg, cap=_cap)
+    ready = None
+    if index.device.type == "cuda":
+        with torch.cuda.device(index.device):
+            ready = torch.cuda.Event()
+            ready.record()
+    future = _pool(index.device).submit(
+        _fused_worker, index, queries, scfg, _cap, schedule, ready,
+        torch.get_num_threads())
+    return FusedHandle(future=future, queries=queries, index=index,
+                       scfg=scfg, cap=_cap)
 
 
 def mih_search_finalize(h: FusedHandle) -> SearchResult:
-    """Wait for a dispatched search's row to reach the host, decode it and
-    apply the fallbacks."""
-    if h.event is not None:
-        h.event.synchronize()
-    row = _unpack_row(h.host, h.scfg.knn,
+    """Join a dispatched search's worker (re-raising its exception), wait
+    for its row to reach the host, decode it and apply the fallbacks."""
+    _, host, event = h.future.result()
+    if event is not None:
+        event.synchronize()
+    row = _unpack_row(host, h.scfg.knn,
                       _result_id_bits(h.index.tables, h.index.cfg.bits))
     return _apply_fallbacks(h.index, h.queries, h.scfg, h.cap, h.scfg.knn,
                             **row)
