@@ -81,11 +81,39 @@ Phases (any failure exits non-zero and prints no result):
      queries (dists and ids), the radius steps on the _pos merges, every
      blockmin launch on the tensor-core instance with the whole batch of
      its scan.
-Phases 4 to 13 each set the kernels' launch counts (blockmin's also by
+ 14. the encoders: 1M clustered features at D = 128 made on the card;
+     ITQEncoder.fit on a 20,000-row sample (50 iterations) and
+     RandomProjectionLSH.create; encode_corpus of all 1M rows by each (fit
+     s, encode s, codes/s); on 4,096 rows the card's codes equal the same
+     encoder's encode on the CPU except at bits whose projection lies
+     within float rounding of 0 (|z| <= 1e-5 * the sum of the product's
+     absolute terms; the bits within 1e-5 of 0 are counted too); then
+     build_index on the ITQ codes and a k = 10 batch of 8192 perturbed
+     rows, dists equal to the popcount oracle on 256 and ids below the
+     kth distance;
+ 15. a world of one on NCCL (parallel.single_device_mesh): the inline
+     sharded engine built on phase 4's 1M corpus, 8192 queries at k = 10,
+     fused and fused=False: dists, radius, n_probes, n_nonempty and
+     n_cands equal to mih_search on the same corpus and driver, ids below
+     the kth distance, the first 256 rows equal to the oracle; s/batch
+     beside mih_search's;
+ 16. the compact sharded engine on the reference's default 100M corpus
+     (made on the card) in the same world: build s, peak device memory,
+     memory_stats(), s/batch at k = 10 over 8192 clustered queries, 64
+     rows against the oracle; the scan tier (scan_popcount over the 100M
+     codes at its 128-query tier) timed apart; the save/load round trip
+     at 1M;
+ 17. ImageSearchServer(sharded=True) on phase 15's index: 16 client
+     threads of search_image_by_id, QPS and p50/p90/p99, every answer's
+     dists equal to sharded_mih_search on the same rows (ids below the
+     kth distance).
+Phases 4 to 17 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
-(phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance. The
-line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.
+(phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
+and the sharded engines (phases 15-17) launch no kernel: their scan tier
+is scan_popcount, as the reference's is. The line before the last is a
+JSON record of the kernels; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -948,6 +976,304 @@ def billion_phase(torch, kb, kp, dev, k10):
     return dict(kb.launches_by_instance)
 
 
+def near_zero_bits(torch, enc, x):
+    """The CPU encoder's fp32 projections of ``x`` and the sums of their
+    products' absolute terms (bounding each projection's rounding)."""
+    if hasattr(enc, "projection"):
+        return x @ enc.projection, x.abs() @ enc.projection.abs()
+    xc = x - enc.mean
+    return (xc @ enc.w @ enc.r,
+            (xc.abs() @ enc.w.abs()) @ enc.r.abs())
+
+
+def code_bits(torch, c):
+    """``int32[n, W]`` codes -> ``bool[n, 32W]``, bit j of word w at 32w+j."""
+    shifts = torch.arange(32, dtype=torch.int32, device=c.device)
+    return (((c[..., None] >> shifts) & 1) != 0).reshape(c.shape[0], -1)
+
+
+def encoder_phase(torch, kb, kp, dev, k10, smi, n=N_MAIN, dim=128,
+                  sample=20_000, n_check=4096, nq=Q):
+    """Phase 14: the encoders on the card, then the engine on their codes.
+    Returns the phase's blockmin launches."""
+    from verticut_tpu_torch import bench
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.index import build_index
+    from verticut_tpu_torch.models import ITQEncoder, RandomProjectionLSH
+    from verticut_tpu_torch.models.lsh import encode_corpus
+    from verticut_tpu_torch.search import mih_search
+    zero_counts(kb, kp)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    n_clusters = max(1, n // 100)
+    centers = torch.randn((n_clusters, dim), generator=gen, device=dev)
+    x = centers[torch.randint(0, n_clusters, (n,), generator=gen,
+                              device=dev)]
+    x += 0.5 * torch.randn((n, dim), generator=gen, device=dev)
+    del centers
+    t0 = time.perf_counter()
+    itq = ITQEncoder.fit(x[:sample], 128, 50, 0)
+    bench.sync(dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lsh = RandomProjectionLSH.create(dim, 128, 0, device=dev)
+    bench.sync(dev)
+    create_s = time.perf_counter() - t0
+    out = {}
+    for name, enc in (("ITQ", itq), ("LSH", lsh)):
+        encode_corpus(enc, x[:65536])                  # warm-up
+        bench.sync(dev)
+        t0 = time.perf_counter()
+        c = encode_corpus(enc, x)
+        bench.sync(dev)
+        enc_s = time.perf_counter() - t0
+        cpu_enc = type(enc)(*(a.cpu() for a in enc))
+        xs = x[:n_check].cpu()
+        differ = code_bits(torch, c[:n_check].cpu() ^ cpu_enc.encode(xs))
+        z, scale = near_zero_bits(torch, cpu_enc, xs)
+        near_abs, near_rel = z.abs() <= 1e-5, z.abs() <= 1e-5 * scale
+        check(not bool((differ & ~near_rel).any()),
+              f"encoder {name}: the card's codes differ from the CPU's at "
+              f"{int((differ & ~near_rel).sum())} bits away from 0")
+        log(f"encoder {name} D={dim} bits=128: encode_corpus of {n} rows "
+            f"on the card {enc_s:.4f} s ({n / enc_s:.0f} codes/s); on "
+            f"{n_check} rows the card's codes equal the CPU encoder's but "
+            f"for {int(differ.sum())} bits, all within rounding of 0 "
+            f"({int(near_rel.sum())} bits within 1e-5 of the product's "
+            f"absolute sum, {int(near_abs.sum())} within 1e-5 of 0); {smi}")
+        out[name] = c
+    log(f"encoder ITQ fit on {sample} rows, 50 iterations: {fit_s:.3f} s; "
+        f"LSH create {create_s:.4f} s; {smi}")
+    del x
+    t0 = time.perf_counter()
+    index = build_index(out["ITQ"], MIHConfig(bits=128, n_tables=4),
+                        device=dev)
+    bench.sync(dev)
+    build_s = time.perf_counter() - t0
+    q = bench.perturbed_queries(np.random.default_rng(14), index.codes, nq)
+    res = mih_search(index, q, k10)
+    res, batch_s = timed_on(torch, dev, lambda: mih_search(index, q, k10))
+    check_result(torch, "ITQ codes k=10", res, index.codes, q, k10.knn)
+    od, oi = oracle(q[:256], index.codes, k10.knn)
+    ties = tie_equal(torch, "ITQ codes k=10 vs the oracle",
+                     SimpleNamespace(dists=res.dists[:256],
+                                     ids=res.ids[:256]), od, oi)
+    log(f"encoder ITQ codes: build_index {build_s:.3f} s; k=10 batch of "
+        f"{nq} perturbed rows {batch_s:.4f} s, radius histogram "
+        f"{torch.bincount(res.radius).tolist()}; 256 rows equal the oracle "
+        f"in dists, in ids below the kth distance ({ties} rows with other "
+        f"ids at it); blockmin launches {kb.launches}; {smi}")
+    return kb.launches
+
+
+def timed_on(torch, dev, fn):
+    """``fn()`` and its seconds, ending in a sync of ``dev``."""
+    from verticut_tpu_torch.bench import sync
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def sharded_counts(kb, kp, name, seen):
+    """The sharded engines launch neither kernel: their scan tier is
+    scan_popcount, as the reference's (``sharded.py:283``). Adds the two
+    counts read since the last zeroing to ``seen`` and zeroes them."""
+    seen["blockmin"] += kb.launches
+    seen["pairwise"] += kp.launches
+    check(kb.launches == 0 and kp.launches == 0,
+          f"{name}: the sharded path launched blockmin {kb.launches} / "
+          f"pairwise {kp.launches} times")
+    zero_counts(kb, kp)
+
+
+def no_launches():
+    return {"blockmin": 0, "pairwise": 0}
+
+
+def world_phase(torch, kb, kp, dev, mesh, packed, k10, smi, nq=Q):
+    """Phase 15: the inline sharded engine in a world of one. Returns the
+    index, its queries and the kernels' launches counted on its paths."""
+    from verticut_tpu_torch import bench, bits
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.index import build_index
+    from verticut_tpu_torch.search import mih_search
+    from verticut_tpu_torch.search.sharded import (build_sharded_index,
+                                                   sharded_mih_search)
+    cfg = MIHConfig(bits=128, n_tables=4)
+    db = bits.as_codes(packed, dev)
+    seen = no_launches()
+    zero_counts(kb, kp)
+    sidx, build_s = timed_on(torch, dev,
+                             lambda: build_sharded_index(db, cfg, mesh))
+    sharded_counts(kb, kp, "sharded build", seen)
+    index = build_index(db, cfg, device=dev)
+    q = bench.perturbed_queries(np.random.default_rng(0), db, nq)
+    od, oi = oracle(q[:256], db, k10.knn)
+    for fused in (True, False):
+        scfg = dataclasses.replace(k10, fused=fused)
+        name = f"sharded N={len(packed)} k=10 {'fused' if fused else 'loop'}"
+        zero_counts(kb, kp)
+        sharded_mih_search(sidx, q, scfg)                # warm-up
+        times = []
+        for _ in range(3):
+            res, dt = timed_on(torch, dev,
+                               lambda: sharded_mih_search(sidx, q, scfg))
+            times.append(dt)
+        sharded_counts(kb, kp, name, seen)
+        mih_search(index, q, scfg)
+        want, one_s = timed_on(torch, dev,
+                               lambda: mih_search(index, q, scfg))
+        for f in ("dists", "radius", "n_probes", "n_nonempty", "n_cands"):
+            check(torch.equal(getattr(res, f), getattr(want, f)),
+                  f"{name}: {f} != mih_search's")
+        ties = tie_equal(torch, f"{name} vs mih_search", res, want.dists,
+                         want.ids)
+        check(torch.equal(res.dists[:256], od)
+              and torch.equal(res.ids[:256], oi),
+              f"{name}: != the popcount oracle")
+        check_result(torch, name, res, db, q, k10.knn)
+        log(f"{name} (world of one): {min(times):.4f} s/batch (runs "
+            f"{', '.join(f'{t:.4f}' for t in times)}), mih_search "
+            f"{one_s:.4f} s; dists and the four stats equal mih_search's, "
+            f"ids below the kth distance ({ties} rows with other ids at "
+            f"it); 256 rows equal the oracle; radius histogram "
+            f"{torch.bincount(res.radius).tolist()}; build "
+            f"{build_s:.3f} s; blockmin/pairwise launches 0; {smi}")
+    return sidx, q, seen
+
+
+def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, n=N_SCALE,
+                  nq=Q, n_oracle=N_SCALE_ORACLE):
+    """Phase 16: the compact sharded engine at the reference's default
+    corpus, the scan tier apart, and the save/load round trip at 1M.
+    Returns the kernels' launches counted on its paths."""
+    import shutil
+    import tempfile
+    from verticut_tpu_torch import bench, bits, codes
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.search.sharded import _device_linear
+    from verticut_tpu_torch.search.sharded_compact import (
+        build_sharded_compact, load_sharded_compact, save_sharded_compact,
+        sharded_compact_search)
+    cfg = MIHConfig(bits=128, n_tables=4)
+    corpus = codes.clustered_codes_device(
+        0, n, 128, n_clusters=max(1, n // 200), flip_p=0.02, device=dev)
+    q = bench.perturbed_queries(np.random.default_rng(0), corpus, nq)
+    seen = no_launches()
+    zero_counts(kb, kp)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cidx, build_s = timed_on(torch, dev,
+                             lambda: build_sharded_compact(corpus, cfg, mesh))
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+            else float("nan"))
+    del corpus
+    st = cidx.memory_stats()
+    log(f"compact sharded build N={n} (world of one): {build_s:.3f} s, "
+        f"peak device memory {peak:.2f} GiB (max_memory_allocated), pbits "
+        f"{cidx.pbits}, cap_rows {cidx.cap_rows}; memory_stats {st}; {smi}")
+    sharded_compact_search(cidx, q, k10)                 # warm-up
+    times = []
+    for _ in range(2):
+        res, dt = timed_on(torch, dev,
+                           lambda: sharded_compact_search(cidx, q, k10))
+        times.append(dt)
+    name = f"compact N={n} k=10"
+    check_result(torch, name, res, cidx.codes, q, k10.knn)
+    od, oi = oracle(q[:n_oracle], cidx.codes, k10.knn)
+    ties = tie_equal(torch, f"{name} vs the oracle",
+                     SimpleNamespace(dists=res.dists[:n_oracle],
+                                     ids=res.ids[:n_oracle]), od, oi)
+    n_loc = cidx.codes.shape[0]
+    _device_linear(mesh, cidx.codes, q[:128], k10.knn, n_loc, cidx.n)
+    (sd, _), scan_s = timed_on(torch, dev, lambda: _device_linear(
+        mesh, cidx.codes, q[:128], k10.knn, n_loc, cidx.n))
+    check(torch.equal(sd.cpu(), res.dists[:128]),
+          f"{name}: the scan tier disagrees with the search")
+    sharded_counts(kb, kp, name, seen)
+    log(f"{name} (compact sharded), {nq} clustered queries: "
+        f"{min(times):.4f} s/batch (runs {', '.join(f'{t:.4f}' for t in times)}"
+        f"); radius histogram {torch.bincount(res.radius).tolist()}; "
+        f"{n_oracle} rows equal the oracle in dists, in ids below the kth "
+        f"distance ({ties} rows with other ids at it); the scan tier alone "
+        f"(scan_popcount, 128 queries over {n} codes) {scan_s:.4f} s; "
+        f"blockmin/pairwise launches 0; {smi}")
+    del cidx, res
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the save/load round trip at 1M
+    db = bits.as_codes(packed, dev)
+    small = build_sharded_compact(db, cfg, mesh)
+    tmp = tempfile.mkdtemp(prefix="vt_compact_")
+    try:
+        _, save_s = timed_on(torch, dev,
+                             lambda: save_sharded_compact(tmp, small))
+        back, load_s = timed_on(torch, dev,
+                                lambda: load_sharded_compact(tmp, mesh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(torch.equal(getattr(back, a), getattr(small, a))
+              for a in ("idrows", "se", "codes")) and back.n == small.n,
+          "compact save/load: the arrays changed")
+    q1 = bench.perturbed_queries(np.random.default_rng(0), db, nq)
+    a = sharded_compact_search(small, q1, k10)
+    b = sharded_compact_search(back, q1, k10)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "compact save/load: the loaded index answers differently")
+    od, oi = oracle(q1[:256], db, k10.knn)
+    ties1 = tie_equal(torch, "compact 1M vs the oracle",
+                      SimpleNamespace(dists=a.dists[:256], ids=a.ids[:256]),
+                      od, oi)
+    sharded_counts(kb, kp, "compact save/load", seen)
+    log(f"compact sharded save/load N={len(packed)}: save {save_s:.3f} s, "
+        f"load {load_s:.3f} s, arrays and every answer equal; 256 rows "
+        f"equal the oracle (dists; ids below the kth distance, {ties1} rows "
+        f"with other ids at it)")
+    return seen
+
+
+def sharded_service_phase(torch, kb, kp, sidx, smi, n_req=400, threads=16):
+    """Phase 17: the server's sharded branch over TCP on localhost.
+    Returns the kernels' launches counted under its load."""
+    from verticut_tpu_torch.config import SearchConfig
+    from verticut_tpu_torch.search.sharded import sharded_mih_search
+    from verticut_tpu_torch.service import ImageSearchClient, ImageSearchServer
+    from verticut_tpu_torch.tools.image_search_test import pcts, run_load
+    k = 10
+    srv = ImageSearchServer(sidx, port=0, default_knn=k, sharded=True).start()
+    try:
+        t0 = time.perf_counter()
+        srv.prewarm(max_rows=128)
+        prewarm_s = time.perf_counter() - t0
+        cli = ImageSearchClient(port=srv.port, pool=threads, timeout=300)
+        ids = np.random.default_rng(17).integers(0, sidx.n, n_req).tolist()
+        run_load(cli, ids[:2 * threads], k, threads)
+        zero_counts(kb, kp)
+        dt, lats, served = run_load(cli, ids, k, threads)
+        st = cli.stats()
+        cli.close()
+    finally:
+        srv.stop()
+    seen = no_launches()
+    sharded_counts(kb, kp, "sharded service", seen)
+    qids = sorted(set(ids))
+    q = sidx.codes[torch.tensor(qids, device=sidx.device)]
+    want = sharded_mih_search(sidx, q, SearchConfig(knn=k))
+    d, i = served_rows(torch, "sharded service", [served[x] for x in qids], k)
+    ties = tie_equal(torch, "sharded service vs sharded_mih_search",
+                     SimpleNamespace(dists=d, ids=i), want.dists, want.ids)
+    log(f"sharded service (world of one) search_image_by_id k={k}, "
+        f"{threads} client threads, {n_req} requests: {n_req / dt:.1f} QPS, "
+        f"p50/p90/p99 {pcts(lats)} ms; prewarm {prewarm_s:.2f} s; "
+        f"{st['n_requests']} rows in {st['n_batches']} batches; every answer "
+        f"equal to sharded_mih_search in dists, in ids below the kth "
+        f"distance ({ties} rows with other ids at it); blockmin/pairwise "
+        f"launches 0; {smi}")
+    return seen
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1093,6 +1419,33 @@ def main() -> int:
 
     # 13. 1B codes (counts zeroed inside)
     billion_by_instance = billion_phase(torch, kb, kp, dev, k10)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. the encoders (counts zeroed inside)
+    encoder_launches = encoder_phase(torch, kb, kp, dev, k10, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15.-17. the sharded engines and server in a world of one on NCCL
+    import torch.distributed as dist
+    from verticut_tpu_torch.parallel import single_device_mesh
+    from verticut_tpu_torch.parallel.world import close_world
+    mesh = single_device_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"the world runs {dist.get_backend()} over "
+          f"{dist.get_world_size()} ranks, not NCCL over one")
+    log(f"world of one: backend {dist.get_backend()}, device {mesh.device}")
+    sidx, _, world_seen = world_phase(torch, kb, kp, dev, mesh, packed, k10,
+                                      smi)
+    service_seen = sharded_service_phase(torch, kb, kp, sidx, smi)
+    del sidx
+    gc.collect()
+    torch.cuda.empty_cache()
+    compact_seen = compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed)
+    close_world()
+    sharded_launches = {k: world_seen[k] + service_seen[k] + compact_seen[k]
+                        for k in ("blockmin", "pairwise")}
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
@@ -1107,6 +1460,8 @@ def main() -> int:
          "service_launches_by_instance": service_by_instance,
          "launches_1b": sum(billion_by_instance.values()),
          "launches_1b_by_instance": billion_by_instance,
+         "encoder_phase_launches": encoder_launches,
+         "sharded_launches": sharded_launches["blockmin"],
          "max_abs_err": max_err["blockmin"],
          "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
          "bound_ms": bm_bound, "bound_by": bm_by,
@@ -1123,6 +1478,7 @@ def main() -> int:
          "source": "verticut_tpu_torch/csrc/pairwise.cu",
          "replaces": f"{src}:419", "instance": "fast",
          "launches": linear["pairwise"], "max_abs_err": max_err["pairwise"],
+         "sharded_launches": sharded_launches["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
          "bound_ms": pairwise_bound(Q, N_PAIRWISE, 4), "bound_by": "bytes",
          "bound_what": "device-memory stores", "library_ms": pw_lib,

@@ -333,3 +333,21 @@ def test_linear_search_methods_on_card(cuda_device, method):
         assert kb.launches > launches[0]
     if method == "pallas":
         assert kp.launches > launches[1]
+
+
+def test_sharded_engines_in_a_world_of_one_on_the_card(cuda_device):
+    """Both sharded engines in a one-rank NCCL world (a spawned process),
+    against the port's mih_search on the same 20k corpus: dists and the
+    four stats equal, ids equal below each row's kth distance."""
+    import torch_world_cases as cases
+    from verticut_tpu_torch.parallel.world import spawn
+    out = spawn(cases.run_world_of_one, 1, device="cuda")[0]
+    assert out["backend"] == "nccl" and out["device"].startswith("cuda")
+    for case in ("inline_True", "inline_False", "compact"):
+        got, want = out[case]
+        for f in ("dists", "radius", "n_probes", "n_nonempty", "n_cands"):
+            assert np.array_equal(got[f], want[f]), (case, f)
+        kth = want["dists"][:, -1:]
+        below = want["dists"] < kth
+        assert np.array_equal(np.where(below, got["ids"], -1),
+                              np.where(below, want["ids"], -1)), case

@@ -13,6 +13,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -269,7 +270,10 @@ def test_server_prewarm_compiles_buckets():
 def test_pad_batch_mixes_id_rows_and_code_rows():
     """A batch of id rows is gathered on the index's device; a batch that
     mixes id rows and code rows reads the id rows' codes; both pad to a
-    power of two of at least 8 with copies of the first row."""
+    power of two of at least 8 with copies of the first row. A sharded
+    server declines the dispatch (its batches take the sync path) and
+    carries a mixed batch as codes and ids, for its followers, padded
+    alike."""
     _, packed, idx = _corpus(3, 100)
     srv = ImageSearchServer(idx, port=0)
     try:
@@ -283,8 +287,22 @@ def test_pad_batch_mixes_id_rows_and_code_rows():
         q, sizes = srv._pad_batch(mixed)
         assert sizes == [1, 2]
         assert np.array_equal(q, packed[[7, 2, 3] + [7] * 5])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            ImageSearchServer(idx, port=0, sharded=True)
+        sharded = SimpleNamespace(cfg=idx.cfg, n=idx.n, codes=idx.codes,
+                                  mesh=SimpleNamespace(
+                                      device=idx.device,
+                                      shape={"table": 1, "shard": 1,
+                                             "query": 1}))
+        ssrv = ImageSearchServer(sharded, port=0, sharded=True)
+        try:
+            assert ssrv._dispatch_device((10, False), mixed) is None
+            codes, ids, sizes = ssrv._sharded_batch(mixed)
+            assert sizes == [1, 2]
+            want = np.zeros((8, 4), np.uint32)
+            want[[0] + list(range(3, 8))] = packed[7]
+            assert np.array_equal(codes.numpy().view(np.uint32), want)
+            assert ids.tolist() == [-1, 2, 3] + [-1] * 5
+        finally:
+            ssrv._srv.server_close()
     finally:
         srv._srv.server_close()
 

@@ -181,3 +181,24 @@ def unpack_bits_pm1(codes: torch.Tensor,
     b = (codes[..., None] >> shifts) & 1     # the mask drops sign fill
     b = b.reshape(*codes.shape[:-1], codes.shape[-1] * 32)
     return (2 * b - 1).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# The raw code file
+# --------------------------------------------------------------------------
+
+def read_code_file(path: str, code_bytes: int, max_codes: int) -> np.ndarray:
+    """Read up to ``max_codes`` codes of ``code_bytes`` bytes from a raw
+    ``lsh.code`` file (little-endian rows, as
+    :func:`verticut_tpu_torch.models.lsh.write_code_file` writes them) as
+    ``uint32[n, code_bytes // 4]``; a trailing partial row is dropped.
+    The port's numpy copy of the reference's ``native.read_code_file``."""
+    if code_bytes <= 0 or code_bytes % 4:
+        raise ValueError(f"code_bytes {code_bytes} not a positive multiple "
+                         "of 4")
+    try:
+        raw = np.fromfile(path, dtype=np.uint8, count=max_codes * code_bytes)
+    except OSError as e:
+        raise IOError(f"cannot read {path}") from e
+    n = raw.shape[0] // code_bytes
+    return pack_bytes(raw[:n * code_bytes].reshape(n, code_bytes))

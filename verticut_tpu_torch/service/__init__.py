@@ -2,5 +2,5 @@
 ``verticut_tpu/service`` (server, pooled client, replica fan-out), on its
 own msgpack subset (:mod:`.wire`)."""
 
-from verticut_tpu_torch.service.server import ImageSearchServer  # noqa: F401
+from verticut_tpu_torch.service.server import ImageSearchServer, follow  # noqa: F401
 from verticut_tpu_torch.service.client import ImageSearchClient, ReplicatedSearchClient  # noqa: F401

@@ -18,11 +18,25 @@ Where the port differs: the index lives on the card, so a
 gathers a batch's id rows with one ``index_select`` on the device; a
 batch's results are read back with one ``tolist`` each; ``prewarm``
 builds the blockmin kernel (torch compiles no graphs) before its one batch
-per bucket. ``sharded=True`` waits for the multi-device port.
+per bucket.
+
+``sharded=True`` serves a ``ShardedMIHIndex`` on the synchronous path, as
+the reference does: each padded batch runs through ``sharded_mih_search``
+on the worker thread. In a world of more than one rank, rank 0 serves and
+every other rank of the mesh runs :func:`follow`: rank 0 broadcasts each
+batch and its ``(knn, approximate)`` (the reference's ``bcast``,
+``mpi_coordinator.cc:26-28``), all ranks search it together, and a stop
+message ends the followers when the server stops. A ``search_image_by_id``
+row's code is looked up across the mesh (each rank holds a slice of the
+codes). Every request is checked on rank 0 before anything is broadcast,
+and a batch that fails after its broadcast fails on every rank alike: rank
+0 answers the error and each follower goes on to the next batch. Only the
+worker thread issues collectives, the stop message included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import socket
 import socketserver
@@ -31,6 +45,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from verticut_tpu_torch import bits as bits_lib
 from verticut_tpu_torch import codes as codes_lib
@@ -86,16 +101,25 @@ class _Server(socketserver.ThreadingTCPServer):
 
 
 class ImageSearchServer:
-    """Serves K-NN queries over a built single-device index."""
+    """Serves K-NN queries over a built index: a single-device
+    ``MIHIndex``, or with ``sharded=True`` a ``ShardedMIHIndex`` (on rank
+    0 of its world; see :func:`follow`)."""
 
     def __init__(self, index, host: str = "127.0.0.1",
                  port: int = DEFAULT_SERVER_PORT,
                  default_knn: int = 10, sharded: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                "sharded=True waits for the multi-device port (ROADMAP.md "
-                "Queue 1 item 3)")
+        if sharded and _world_size() > 1:
+            if dist.get_rank() != 0:
+                raise ValueError("rank 0 serves; the other ranks follow()")
+            if index.mesh.coords is None or _mesh_size(index) != _world_size():
+                raise ValueError("a sharded server's mesh must span the "
+                                 "world: every other rank follows it")
         self.index = index
+        self.sharded = sharded
+        # rank 0 of a sharded world: every batch is broadcast to followers
+        self._leads = sharded and _world_size() > 1
+        self._closed = False    # stop() was called
+        self._stopped = False   # the followers were sent the stop message
         self.default_knn = default_knn
         self._srv = _Server((host, port), _Handler)
         self._srv.owner = self
@@ -128,6 +152,7 @@ class ImageSearchServer:
         if method == "search_image_by_id":
             image_id, knn, approx = (list(params) + [self.default_knn, False]
                                      )[:3]
+            knn = self._check_knn(knn)
             if self.index.codes is None:
                 raise ValueError("index holds no code array")
             if not 0 <= int(image_id) < self.index.n:
@@ -135,18 +160,32 @@ class ImageSearchServer:
                                  f"[0, {self.index.n})")
             # an id row: the worker gathers the code on the device
             q = np.array([int(image_id)], np.int64)
-            return self._search(q, int(knn), bool(approx))[0]
+            return self._search(q, knn, bool(approx))[0]
         if method == "search_by_code":
             code, knn, approx = (list(params) + [self.default_knn, False])[:3]
+            knn = self._check_knn(knn)
+            if len(code) != self.index.cfg.n_bytes:
+                raise ValueError(f"a code is {self.index.cfg.n_bytes} bytes, "
+                                 f"not {len(code)}")
             q = codes_lib.pack_bytes(np.frombuffer(code, np.uint8)[None])
-            return self._search(q, int(knn), bool(approx))[0]
+            return self._search(q, knn, bool(approx))[0]
         if method == "search_batch":
             blob, knn, approx = (list(params) + [self.default_knn, False])[:3]
+            knn = self._check_knn(knn)
             nbytes = self.index.cfg.n_bytes
             raw = np.frombuffer(blob, np.uint8).reshape(-1, nbytes)
-            return self._search(codes_lib.pack_bytes(raw), int(knn),
-                                bool(approx))
+            return self._search(codes_lib.pack_bytes(raw), knn, bool(approx))
         raise ValueError(f"unknown method {method!r}")
+
+    def _check_knn(self, knn) -> int:
+        """A request's ``knn``, checked before its batch is formed: at
+        least 1, and on a sharded index at most the corpus size (a batch
+        that fails after its broadcast costs every rank of the world)."""
+        knn = int(knn)
+        hi = self.index.n if self.sharded else None
+        if knn < 1 or (hi is not None and knn > hi):
+            raise ValueError(f"knn {knn} outside [1, {hi or 'inf'}]")
+        return knn
 
     def _search(self, queries: np.ndarray, knn: int, approx: bool):
         """Micro-batching: concurrent requests with the same (knn, approx)
@@ -172,6 +211,8 @@ class ImageSearchServer:
         with self._work.mutex:  # idempotent start (any thread may race)
             if self._running:
                 return
+            if self._leads and self._closed:
+                raise RuntimeError("the server has stopped its followers")
             self._running = True
         self._worker = threading.Thread(target=self._worker_loop,
                                         daemon=True, name="search-worker")
@@ -216,6 +257,7 @@ class ImageSearchServer:
                 if item is None:  # stop sentinel
                     if inflight is not None:
                         self._safe_finalize(inflight)
+                    self._stop_followers()
                     return
                 if item is False:
                     self._safe_finalize(inflight)
@@ -228,10 +270,16 @@ class ImageSearchServer:
                 except Exception as e:  # noqa: BLE001 — to the waiters
                     self._deliver_error(batch, e)
                     dispatched = None
+                    batch = []
                 if prev is not None:
                     self._safe_finalize(prev)
                 if dispatched is not None:
                     inflight = (key, batch) + dispatched
+                elif batch:  # the sync engine (sharded)
+                    try:
+                        self._execute_sync(key, batch)
+                    except Exception as e:  # noqa: BLE001 — to the waiters
+                        self._deliver_error(batch, e)
             except Exception:  # noqa: BLE001 — worker must survive
                 log.exception("search worker iteration failed")
 
@@ -279,7 +327,10 @@ class ImageSearchServer:
         return queries, sizes
 
     def _dispatch_device(self, key, batch):
-        """Launch without waiting."""
+        """Launch without waiting; None where only the sync path applies
+        (sharded)."""
+        if self.sharded:
+            return None
         knn, approx = key
         queries, sizes = self._pad_batch(batch)
         h = mih_search_dispatch(self.index, queries,
@@ -295,6 +346,45 @@ class ImageSearchServer:
                              SearchConfig(knn=knn, approximate=approx))
         else:
             res = mih_search_finalize(handle)
+        self._distribute(batch, sizes, res)
+
+    def _sharded_batch(self, batch):
+        """The batch as the followers receive it: ``codes int32[nq, W]``
+        (zero at id rows) and ``ids int64[nq]`` (-1 at code rows), padded
+        with copies of the first row to a power of two of at least 8,
+        rounded up to a multiple of the mesh's query axis (which splits
+        the rows evenly), on the index's device, and each request's row
+        count."""
+        qs = [slot[0] for slot, _ in batch]
+        sizes = [q.shape[0] for q in qs]
+        nq = sum(sizes)
+        self.n_requests += nq
+        self.n_batches += 1
+        n_rows = max(8, 1 << (nq - 1).bit_length())
+        n_query = self.index.mesh.shape["query"]
+        n_pad = -(-n_rows // n_query) * n_query - nq
+        w = self.index.cfg.n_words
+        codes = np.zeros((nq + n_pad, w), np.uint32)
+        ids = np.full(nq + n_pad, -1, np.int64)
+        lo = 0
+        for q in qs:
+            if q.ndim == 1:
+                ids[lo:lo + q.shape[0]] = q
+            else:
+                codes[lo:lo + q.shape[0]] = q
+            lo += q.shape[0]
+        codes[nq:], ids[nq:] = codes[0], ids[0]
+        dev = self.index.mesh.device
+        return (bits_lib.as_codes(codes, dev),
+                torch.from_numpy(ids).to(dev), sizes)
+
+    def _execute_sync(self, key, batch):
+        knn, approx = key
+        codes, ids, sizes = self._sharded_batch(batch)
+        with _on(self.index.mesh.device):
+            if self._leads:
+                _broadcast_batch(self.index, 1, knn, approx, codes, ids)
+            res = _sharded_search(self.index, codes, ids, knn, approx)
         self._distribute(batch, sizes, res)
 
     def _distribute(self, batch, sizes, res):
@@ -317,7 +407,7 @@ class ImageSearchServer:
         max_rows = self.max_batch_rows if max_rows is None else max_rows
         if self.index.codes is None:
             raise ValueError("index holds no code array")
-        if self.index.device.type == "cuda":
+        if self.index.device.type == "cuda" and not self.sharded:
             from verticut_tpu_torch.kernels import blockmin
             blockmin.build()
         b = 8
@@ -336,14 +426,28 @@ class ImageSearchServer:
         log.info("image-search server on port %d", self.port)
         return self
 
+    def _stop_followers(self):
+        """Send the followers the stop message, once. Called by the worker
+        at its stop sentinel, or by :meth:`stop` where no worker runs, so
+        that one thread alone issues the world's collectives."""
+        if self._leads and not self._stopped:
+            with _on(self.index.mesh.device):
+                _broadcast_batch(self.index, 0, 0, False)
+        self._stopped = True
+
     def stop(self):
         self._srv.shutdown()
         self._srv.server_close()
-        if self._running:
-            self._running = False
+        with self._work.mutex:
+            running, self._running = self._running, False
+            self._closed = True
+        if running:
             self._work.put(None)  # stop sentinel: worker drains in-flight
             if self._worker is not None:
-                self._worker.join(timeout=10)
+                # a sharded world waits for the worker's stop message
+                self._worker.join(timeout=None if self._leads else 10)
+        else:
+            self._stop_followers()
         # proactively disconnect live clients so they reconnect and observe
         # the new epoch (the reference's resize-protocol behavior,
         # store-server.cc:97-146: disconnect all, clients retry)
@@ -354,3 +458,79 @@ class ImageSearchServer:
                 pass
         if self._thread:
             self._thread.join(timeout=5)
+
+
+# --------------------------------------------------------------------------
+# The sharded server's world: rank 0 serves, every other rank follows
+# --------------------------------------------------------------------------
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _mesh_size(index) -> int:
+    return index.mesh.n_model * index.mesh.shape["query"]
+
+
+def _on(device):
+    """The device's context for collectives issued from this thread."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _broadcast_batch(index, kind: int, knn: int, approx: bool,
+                     codes: Optional[torch.Tensor] = None,
+                     ids: Optional[torch.Tensor] = None) -> None:
+    """Rank 0's side of the message :func:`follow` receives: the header
+    ``[kind, rows, knn, approx]`` (kind 0 = stop, 1 = a batch), then the
+    batch's codes and ids."""
+    dev = index.mesh.device
+    nq = 0 if codes is None else codes.shape[0]
+    dist.broadcast(torch.tensor([kind, nq, knn, int(approx)],
+                                dtype=torch.int64, device=dev), src=0)
+    if kind:
+        dist.broadcast(codes, src=0)
+        dist.broadcast(ids, src=0)
+
+
+def _sharded_search(index, codes: torch.Tensor, ids: torch.Tensor, knn: int,
+                    approx: bool):
+    """One batch on every rank of the mesh: the id rows' codes looked up
+    across the mesh, then ``sharded_mih_search``."""
+    from verticut_tpu_torch.search.sharded import (lookup_codes,
+                                                   sharded_mih_search)
+    is_id = ids >= 0
+    if bool(is_id.any()):   # the same payload, so the same on every rank
+        codes = torch.where(is_id[:, None],
+                            lookup_codes(index, ids.clamp(min=0)), codes)
+    return sharded_mih_search(index, codes,
+                              SearchConfig(knn=knn, approximate=approx))
+
+
+def follow(index) -> int:
+    """A follower rank's side of a sharded server: receive every batch
+    rank 0 broadcasts and join its search, until the stop message. A batch
+    that raises (as it does on every rank alike, rank 0 answering the
+    error) is logged and the next one awaited; a failure of the world
+    itself ends it. Returns the number of batches followed."""
+    dev = index.mesh.device
+    w = index.cfg.n_words
+    n = 0
+    with _on(dev):
+        while True:
+            hdr = torch.empty(4, dtype=torch.int64, device=dev)
+            dist.broadcast(hdr, src=0)
+            kind, nq, knn, approx = hdr.tolist()
+            if kind == 0:
+                return n
+            codes = torch.empty((nq, w), dtype=torch.int32, device=dev)
+            ids = torch.empty(nq, dtype=torch.int64, device=dev)
+            dist.broadcast(codes, src=0)
+            dist.broadcast(ids, src=0)
+            try:
+                _sharded_search(index, codes, ids, knn, bool(approx))
+            except dist.DistError:
+                raise
+            except Exception:  # noqa: BLE001 — rank 0 answers the error
+                log.exception("a followed batch failed")
+            n += 1
