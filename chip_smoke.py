@@ -107,7 +107,25 @@ Phases (any failure exits non-zero and prints no result):
      threads of search_image_by_id, QPS and p50/p90/p99, every answer's
      dists equal to sharded_mih_search on the same rows (ids below the
      kth distance).
-Phases 4 to 17 each set the kernels' launch counts (blockmin's also by
+ 18. the command-line tools (verticut_tpu_torch/tools), each main()
+     called in this process on phase 4's corpus written to a code file
+     (and 200 uniform queries to another): build_index inline, --compact,
+     --bitmap --ntables 8 (each file equal to the same build in memory)
+     and --mesh 1x1x1 (a spawned rank; the shards equal the build in a
+     world of one); search -q 12345 -k 100, -f -k 10 (the oracle's dists,
+     its ids below the kth distance), -f -k 10 -a (mih_search's
+     approximate answer) and --mesh 1x1x1 (the single-device lines and
+     stat line); linear_search popcount == matmul == the search's dists;
+     integrity_check on the file (ok), on a copy with one id flipped (exit
+     1) and --synthetic 100M (ok; build and check s, peak memory);
+     generate_bitmap --ntables 8 byte-equal to the index's bitmaps;
+     accuracy_sweep at 1M x 256 (two subprocesses), every field but the
+     times equal to ACCURACY_r05.json's; bigann --synth 1M (1,000
+     queries, shortlists 10, 100, 1000; recall, ratio, seconds, QPS), the
+     shortlist-1000 answer equal to the oracle on 64 queries. Blockmin
+     must launch in the in-process tools, on the tensor-core instance
+     only, and pairwise not at all.
+Phases 4 to 18 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
 (phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
 and the sharded engines (phases 15-17) launch no kernel: their scan tier
@@ -1274,6 +1292,296 @@ def sharded_service_phase(torch, kb, kp, sidx, smi, n_req=400, threads=16):
     return seen
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the command-line tools, each tool's main() called in process
+# --------------------------------------------------------------------------
+
+#: the fields of an accuracy row that hold no time
+ACCURACY_FIELDS = ("distance_ratio", "inaccurate_count", "accuracy",
+                   "mean_radius_exact", "mean_radius_approx")
+
+
+def run_tool(tool, argv):
+    """``tool.main(argv)`` in this process (so the kernels' counters see
+    it), its stdout and stderr captured and logged; returns ``(stdout,
+    stderr, main's return value)``. A tool that exits non-zero raises
+    SystemExit through here and ends the script."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        ret = tool.main(argv)
+    name = tool.__name__.rsplit(".", 1)[-1]
+    lines = [ln for ln in out.getvalue().splitlines()
+             if not re.fullmatch(r"-?\d+ : \d+", ln)]
+    log(f"  {name} {' '.join(argv)}: {time.perf_counter() - t0:.2f} s")
+    for ln in lines[:12] + [ln for ln in err.getvalue().splitlines()
+                            if not ln.startswith(("W1", "I1"))][:6]:
+        log(f"    | {ln}")
+    return out.getvalue(), err.getvalue(), ret
+
+
+def tool_rows(torch, text, k):
+    """A search tool's ``"id : dist"`` lines as host ``(dists, ids)``
+    ``[Q, k]`` tensors."""
+    pairs = [tuple(map(int, ln.split(" : "))) for ln in text.splitlines()
+             if re.fullmatch(r"-?\d+ : \d+", ln)]
+    t = torch.tensor(pairs, dtype=torch.int32).reshape(-1, k, 2)
+    return t[..., 1].contiguous(), t[..., 0].contiguous()
+
+
+def stat_line(err):
+    return [ln for ln in err.splitlines() if ln.startswith("average")]
+
+
+def npz_equal(a, b):
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x.files)
+
+
+def seconds(text, what):
+    """The seconds a tool printed after ``what``."""
+    m = re.search(re.escape(what) + r".*? in ([\d.]+)s", text)
+    return float(m[1]) if m else float("nan")
+
+
+def tools_phase(torch, kb, kp, dev, packed, smi):
+    """Phase 18: every command-line tool of the port on the card, through
+    its main(), on the bench corpus written to a code file. Returns the
+    kernels' launches over the in-process tools."""
+    import shutil
+    import tempfile
+    from verticut_tpu_torch import bits, codes
+    from verticut_tpu_torch.config import MIHConfig, SearchConfig
+    from verticut_tpu_torch.index import build_index, load_index, save_index
+    from verticut_tpu_torch.models.lsh import write_code_file
+    from verticut_tpu_torch.parallel import single_device_mesh
+    from verticut_tpu_torch.parallel.world import close_world
+    from verticut_tpu_torch.search import mih_search
+    from verticut_tpu_torch.search.sharded_compact import (
+        build_sharded_compact, load_sharded_compact)
+    from verticut_tpu_torch.tools import (
+        accuracy_sweep, bigann, build_index as t_build, generate_bitmap,
+        integrity_check, linear_search as t_linear, search as t_search)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vt_tools_")
+    try:
+        zero_counts(kb, kp)
+        code_file = os.path.join(tmp, "lsh.code")
+        query_file = os.path.join(tmp, "queries.code")
+        uq = codes.random_codes(18, 200, 128)
+        write_code_file(code_file, packed)
+        write_code_file(query_file, uq)
+        db = bits.as_codes(packed, dev)
+        src = ["--binary_file", code_file, "-i", str(N_MAIN)]
+
+        # 1.-2. build_index three ways and --mesh 1x1x1, each against the
+        # same build in memory
+        builds = {"inline": ([], {}), "compact": (["--compact"],
+                                                  {"store_codes": False}),
+                  "bitmap": (["--bitmap", "--ntables", "8"],
+                             {"with_bitmap": True})}
+        paths = {}
+        for name, (flags, kw) in builds.items():
+            paths[name] = os.path.join(tmp, f"{name}.npz")
+            out, _, _ = run_tool(t_build, src + ["--out", paths[name]] + flags)
+            cfg = MIHConfig(bits=128, n_tables=8 if kw.get("with_bitmap")
+                            else 4)
+            mem = os.path.join(tmp, f"mem_{name}.npz")
+            save_index(mem, build_index(db, cfg, **kw))
+            check(npz_equal(paths[name], mem),
+                  f"build_index {name}: the file differs from the build in "
+                  "memory")
+            log(f"tools build_index {name}: build "
+                f"{seconds(out, 'tables over')} s, save "
+                f"{seconds(out, 'saved to')} s; every array equal to the "
+                f"build in memory")
+        mesh_dir = os.path.join(tmp, "mesh")
+        torch.cuda.empty_cache()
+        out, _, _ = run_tool(t_build, src + ["--out", mesh_dir, "--mesh",
+                                             "1x1x1"])
+        mesh = single_device_mesh()
+        try:
+            back = load_sharded_compact(mesh_dir, mesh)
+            mem = build_sharded_compact(db, MIHConfig(), mesh)
+            check(back.n == mem.n and all(
+                torch.equal(getattr(back, a), getattr(mem, a))
+                for a in ("idrows", "se", "codes")),
+                "build_index --mesh 1x1x1: the saved shards differ from "
+                "the build in memory")
+        finally:
+            close_world()
+        del back, mem
+        log(f"tools build_index --mesh 1x1x1 (a spawned rank on the card): "
+            f"build {seconds(out, 'devices')} s, save "
+            f"{seconds(out, 'per-shard to')} s; arrays equal to the build "
+            f"in memory")
+
+        # 3. search, held to the popcount oracle
+        inline = paths["inline"]
+        out_q, err_q, _ = run_tool(t_search, ["--index", inline, "-q",
+                                              "12345", "-k", "100"])
+        d_q, i_q = tool_rows(torch, out_q, 100)
+        od, oi = oracle(db[12345:12346], db, 100)
+        ties = tie_equal(torch, "tools search -q 12345 -k 100",
+                         SimpleNamespace(dists=d_q, ids=i_q), od, oi)
+        out, _, _ = run_tool(t_search, ["--index", inline, "-f", query_file,
+                                        "-k", "10"])
+        d, i = tool_rows(torch, out, 10)
+        uq_dev = bits.as_codes(uq, dev)
+        od, oi = oracle(uq_dev, db, 10)
+        ties += tie_equal(torch, "tools search -f -k 10",
+                          SimpleNamespace(dists=d, ids=i), od, oi)
+        out, _, _ = run_tool(t_search, ["--index", inline, "-f", query_file,
+                                        "-k", "10", "-a"])
+        d, i = tool_rows(torch, out, 10)
+        check_result(torch, "tools search -f -k 10 -a",
+                     SimpleNamespace(dists=d, ids=i), db, uq_dev, 10)
+        want = mih_search(load_index(inline, device=dev), uq_dev,
+                          SearchConfig(knn=10, approximate=True))
+        check(torch.equal(d, want.dists) and torch.equal(i, want.ids),
+              "tools search -a: not mih_search's approximate answer")
+        recall = float((i[:, :, None] == oi[:, None, :]).any(-1).float()
+                       .mean())
+        torch.cuda.empty_cache()
+        out_m, err_m, _ = run_tool(t_search, ["--index", inline, "-q",
+                                              "12345", "-k", "100",
+                                              "--mesh", "1x1x1"])
+        d_m, i_m = tool_rows(torch, out_m, 100)
+        check(torch.equal(d_m, d_q) and torch.equal(i_m, i_q),
+              "tools search --mesh 1x1x1: not the single-device answer")
+        check(stat_line(err_m) == stat_line(err_q) != [],
+              f"tools search --mesh 1x1x1: stat line {stat_line(err_m)} "
+              f"against {stat_line(err_q)}")
+        log(f"tools search: -q 12345 -k 100, -f (200 uniform) -k 10 equal "
+            f"the oracle in dists and in ids below the kth distance ({ties} "
+            f"rows with other ids at it); -a equals mih_search's approximate "
+            f"answer, every id at its distance, recall@10 {recall:.4f}; "
+            f"--mesh 1x1x1 equals the single-device lines and stat line "
+            f"{stat_line(err_q)[0]!r}")
+
+        # 4. linear_search, both methods
+        outs = {m: run_tool(t_linear, src + ["-q", "12345", "-k", "100",
+                                             "--method", m])
+                for m in ("popcount", "matmul")}
+        check(outs["popcount"][0] == outs["matmul"][0],
+              "tools linear_search: popcount and matmul differ")
+        d_l, _ = tool_rows(torch, outs["popcount"][0], 100)
+        check(torch.equal(d_l, d_q),
+              "tools linear_search: dists differ from the search's")
+        log(f"tools linear_search -q 12345 -k 100: popcount == matmul, "
+            f"dists equal the search's; scan s "
+            f"{ {m: seconds(o[1], 'scan of') for m, o in outs.items()} }")
+
+        # 5. integrity_check: the inline file, a corrupted copy, and the
+        # 100M row the reference tool was written for
+        out, _, _ = run_tool(integrity_check, ["--index", inline])
+        check(json.loads(out.splitlines()[0])["ok"],
+              "tools integrity_check: the inline file is not ok")
+        with np.load(inline) as z:
+            arrs = dict(z)
+        arrs["t0_ids"] = arrs["t0_ids"].copy()
+        arrs["t0_ids"][5] ^= 1
+        bad = os.path.join(tmp, "corrupt.npz")
+        np.savez(bad, **arrs)
+        del arrs
+        try:
+            run_tool(integrity_check, ["--index", bad])
+            check(False, "tools integrity_check: a corrupted index passed")
+        except SystemExit as e:
+            check(e.code == 1, f"integrity_check exit {e.code}, not 1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, _, _ = run_tool(integrity_check, ["--synthetic",
+                                               str(N_SCALE)])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rep = json.loads(out.splitlines()[0])
+        check(rep["ok"] and rep["n"] == N_SCALE,
+              f"tools integrity_check --synthetic {N_SCALE}: {rep}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"tools integrity_check: the inline file ok, the corrupted copy "
+            f"exit 1; --synthetic {N_SCALE}: ok, build {rep['build_s']} s, "
+            f"check {rep['check_s']} s, peak {peak:.2f} GiB "
+            f"(max_memory_allocated); {smi}")
+
+        # 6. generate_bitmap, byte-equal to the bitmaps of the index built
+        # with --bitmap
+        prefix = os.path.join(tmp, "bitmap")
+        run_tool(generate_bitmap, src + ["--ntables", "8", "--out_prefix",
+                                         prefix])
+        bidx = load_index(paths["bitmap"], device=dev)
+        for t, tab in enumerate(bidx.tables):
+            with open(f"{prefix}.{t}", "rb") as f:
+                check(f.read() == bits.to_u32(tab.bitmap.words).tobytes(),
+                      f"tools generate_bitmap: table {t}'s file differs")
+        del bidx
+        log("tools generate_bitmap --ntables 8: 8 files byte-equal to the "
+            "index's bitmaps")
+
+        # 7. the accuracy protocol at 1M x 256 (two subprocesses)
+        _, _, art = run_tool(accuracy_sweep, [
+            os.path.join(tmp, "accuracy.json"), str(N_MAIN), "256"])
+        ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "ACCURACY_r05.json")
+        with open(ref_path) as f:
+            ref = json.load(f)
+        differ = []
+        for corpus in ("clustered", "uniform"):
+            for got, want in zip(art[corpus], ref[corpus], strict=True):
+                same = all(got[f] == want[f] for f in ACCURACY_FIELDS)
+                log(f"tools accuracy {corpus} k={got['k']}: exact "
+                    f"{got['exact_s']} s, approx {got['approx_s']} s; "
+                    + ", ".join(f"{f} {got[f]}" for f in ACCURACY_FIELDS)
+                    + ("" if same else f" (ACCURACY_r05.json: "
+                       + ", ".join(f"{f} {want[f]}" for f in ACCURACY_FIELDS)
+                       + ")"))
+                if not same:
+                    differ.append((corpus, got["k"]))
+        check(not differ, f"tools accuracy_sweep: rows {differ} differ from "
+              "ACCURACY_r05.json in a field that holds no time")
+
+        # 8. bigann's synthetic pipeline at 1M
+        _, _, ev = run_tool(bigann, [
+            "--synth", str(N_MAIN), "--queries", "1000", "--k", "10",
+            "--shortlists", "10,100,1000", "--json",
+            os.path.join(tmp, "bigann.json")])
+        for row in ev.rows:
+            log(f"tools bigann N={N_MAIN} shortlist {row['shortlist']}: recall@1 "
+                f"{row['recall_at_1']}, recall@10 {row['recall_at_10']}, "
+                f"distance ratio {row['distance_ratio']}, search "
+                f"{row['search_s']} s, {row['qps']} QPS; {smi}")
+        res = ev.results[1000]
+        od, oi = oracle(ev.queries[:64], ev.index.codes, 1000)
+        ties = tie_equal(torch, "tools bigann shortlist 1000",
+                         SimpleNamespace(dists=res.dists[:64],
+                                         ids=res.ids[:64]), od, oi)
+        log(f"tools bigann shortlist 1000: 64 rows equal the oracle in dists "
+            f"and in ids below the kth distance ({ties} rows with other ids "
+            f"at it)")
+        del ev, res
+        # the subprocesses of accuracy_sweep and of the --mesh runs count
+        # in their own processes, not here
+        launches = {"blockmin": kb.launches, "pairwise": kp.launches,
+                    "by_instance": dict(kb.launches_by_instance)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tools phase launches (in-process tools): {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(launches["blockmin"] > 0 and launches["by_instance"]["generic"]
+          == 0, f"tools phase: blockmin launches {launches}, not on the "
+          "tensor-core instance only")
+    check(launches["pairwise"] == 0,
+          f"tools phase: {launches['pairwise']} pairwise launches")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1446,6 +1754,11 @@ def main() -> int:
     close_world()
     sharded_launches = {k: world_seen[k] + service_seen[k] + compact_seen[k]
                         for k in ("blockmin", "pairwise")}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. the command-line tools (counts zeroed inside)
+    tools_launches = tools_phase(torch, kb, kp, dev, packed, smi)
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
@@ -1462,6 +1775,8 @@ def main() -> int:
          "launches_1b_by_instance": billion_by_instance,
          "encoder_phase_launches": encoder_launches,
          "sharded_launches": sharded_launches["blockmin"],
+         "tools_phase_launches": tools_launches["blockmin"],
+         "tools_phase_launches_by_instance": tools_launches["by_instance"],
          "max_abs_err": max_err["blockmin"],
          "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
          "bound_ms": bm_bound, "bound_by": bm_by,
@@ -1479,6 +1794,7 @@ def main() -> int:
          "replaces": f"{src}:419", "instance": "fast",
          "launches": linear["pairwise"], "max_abs_err": max_err["pairwise"],
          "sharded_launches": sharded_launches["pairwise"],
+         "tools_phase_launches": tools_launches["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
          "bound_ms": pairwise_bound(Q, N_PAIRWISE, 4), "bound_by": "bytes",
          "bound_what": "device-memory stores", "library_ms": pw_lib,

@@ -93,6 +93,30 @@ def test_unpack_bits_pm1_matches():
     assert torch.equal(dot.to(torch.int32), 128 - 2 * ham)
 
 
+
+@pytest.mark.parametrize("n_bytes,dtype", [(16, torch.float32),
+                                           (16, torch.bfloat16),
+                                           (32, torch.bfloat16),
+                                           (8, torch.float32)])
+def test_hamming_via_matmul_matches(n_bytes, dtype):
+    """The +-1 GEMM on the reference's inputs (tests/test_codes.py's
+    case): equal to JAX's and to the popcount distances, in float32 and,
+    up to 256 bits, bfloat16."""
+    rng = np.random.default_rng(4)
+    q = jcodes.pack_bytes(rng.integers(0, 256, size=(8, n_bytes),
+                                       dtype=np.uint8))
+    db = jcodes.pack_bytes(rng.integers(0, 256, size=(33, n_bytes),
+                                        dtype=np.uint8))
+    qpm = np.array(jcodes.unpack_bits_pm1(jnp.asarray(q), jnp.float32))
+    dpm = np.array(jcodes.unpack_bits_pm1(jnp.asarray(db), jnp.float32))
+    want = np.asarray(jcodes.hamming_via_matmul(jnp.asarray(qpm),
+                                                jnp.asarray(dpm)))
+    got = tcodes.hamming_via_matmul(torch.from_numpy(qpm).to(dtype),
+                                    torch.from_numpy(dpm).to(dtype))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, np.asarray(jcodes.pairwise_hamming(
+        jnp.asarray(q), jnp.asarray(db))))
+
 def test_clustered_codes_device_is_deterministic():
     """Shape and dtype; the same codes for the same seed, other codes for
     another seed. (jax.random draws other numbers than a torch.Generator,

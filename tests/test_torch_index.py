@@ -254,3 +254,75 @@ def test_entry_points_default_to_the_card(tmp_path):
                 call()
     assert load_index(path, device="cpu").device.type == "cpu"
     assert index_from_arrays(arrays, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("bits_w,m", [(64, 2), (128, 4)])
+def test_unblock_entry_rows_matches_jax(bits_w, m):
+    """The host inverse of the blocked rows at W = 2 and 4: the port's of
+    the port's rows equals JAX's of JAX's, in dtype and value, and the
+    port's takes JAX's numpy rows as well."""
+    from verticut_tpu.index.mih import unblock_entry_rows as jax_unblock
+    from verticut_tpu_torch.index.mih import unblock_entry_rows
+    packed = jcodes.clustered_codes(6, 3000, bits_w, n_clusters=15,
+                                    flip_p=0.02)
+    cfg = MIHConfig(bits=bits_w, n_tables=m)
+    port = build_index(packed, cfg, directory="range", device="cpu")
+    ref = jax_build_index(packed, cfg, directory="range")
+    w = cfg.n_words
+    for tp, tr in zip(port.tables, ref.tables, strict=True):
+        want = jax_unblock(tr.entry_rows, w)
+        for got in (unblock_entry_rows(tp.entry_rows, w),
+                    unblock_entry_rows(np.asarray(tr.entry_rows), w)):
+            for a, b in zip(got, want, strict=True):
+                assert a.dtype == b.dtype == np.uint32
+                assert np.array_equal(a, b)
+        ids, codes = want
+        valid = ids != 0xFFFFFFFF
+        assert np.array_equal(ids[valid], bits.to_u32(tp.entry_ids)
+                              .view(np.uint32))
+        assert np.array_equal(codes[valid], packed[ids[valid]])
+
+
+def _jax_exports():
+    """``(subpackage, name)`` for every name a subpackage of the JAX
+    package exports: the names its ``__init__`` imports or lazily
+    resolves (``__getattr__``), and its modules."""
+    import ast
+    import pathlib
+    import verticut_tpu
+    root = pathlib.Path(verticut_tpu.__file__).parent
+    out = []
+    for pkg in ("index", "ops", "search", "parallel", "service", "utils",
+                "models"):
+        tree = ast.parse((root / pkg / "__init__.py").read_text())
+        names = {a.asname or a.name for node in tree.body
+                 if isinstance(node, ast.ImportFrom) for a in node.names}
+        for fn in tree.body:
+            if isinstance(fn, ast.FunctionDef) and fn.name == "__getattr__":
+                names |= {c.value for c in ast.walk(fn)
+                          if isinstance(c, ast.Constant)
+                          and isinstance(c.value, str)}
+        names |= {p.stem for p in (root / pkg).iterdir()
+                  if p.stem != "__init__" and not p.stem.startswith("_")
+                  and (p.suffix == ".py" or (p / "__init__.py").exists())}
+        out += [(pkg, n) for n in sorted(names)]
+    return out
+
+
+#: ROADMAP.md's "Not ported" list, where it names a subpackage export
+NOT_PORTED = {("index", "build_native"), ("ops", "pallas"),
+              ("utils", "cache"), ("utils", "retry")}
+
+
+@pytest.mark.parametrize("pkg,name", _jax_exports())
+def test_every_jax_export_resolves_in_the_port(pkg, name):
+    import importlib
+    mod = importlib.import_module(f"verticut_tpu_torch.{pkg}")
+    if (pkg, name) in NOT_PORTED:
+        assert not hasattr(mod, name)
+        with pytest.raises(ImportError):
+            importlib.import_module(f"verticut_tpu_torch.{pkg}.{name}")
+        return
+    if not hasattr(mod, name):
+        importlib.import_module(f"verticut_tpu_torch.{pkg}.{name}")
+    assert getattr(mod, name) is not None

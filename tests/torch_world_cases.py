@@ -444,3 +444,15 @@ def run_world_of_one(rank):
     out["compact"] = (as_np(sharded_compact_search(cidx, q, scfg)),
                       as_np(mih_search(compact, q, scfg)))
     return out
+
+
+def run_loaded_compact(rank, paths, q):
+    """The command-line build's ``--mesh 4x1x1`` case: each saved compact
+    index of ``paths`` loaded onto a 4x1x1 mesh, and one k = 10 batch of
+    ``q`` on it."""
+    from verticut_tpu_torch.search.sharded_compact import (
+        load_sharded_compact, sharded_compact_search)
+    mesh = make_mesh(4, 1, 1)
+    return [as_np(sharded_compact_search(load_sharded_compact(p, mesh), q,
+                                         SearchConfig(knn=10)))
+            for p in paths]

@@ -183,6 +183,21 @@ def unpack_bits_pm1(codes: torch.Tensor,
     return (2 * b - 1).to(dtype)
 
 
+def hamming_via_matmul(q_pm1: torch.Tensor,
+                       db_pm1: torch.Tensor) -> torch.Tensor:
+    """``[Q, B] x [N, B] -> int32[Q, N]`` Hamming distances of ``±1``
+    vectors (:func:`unpack_bits_pm1`) by one GEMM, ``(B - dot) / 2``; the
+    reference computes it outside any Pallas kernel, as this does.
+
+    Every product and sum stays exact: the dot of two ``±1`` vectors is an
+    integer of the parity of ``B`` with ``|dot| <= B``, which bfloat16
+    holds up to ``B = 256`` and float32 (and TF32, whose inputs ``±1``
+    are) up to ``2^24``; the GEMM accumulates in float32 either way."""
+    bits = q_pm1.shape[-1]
+    dot = (q_pm1 @ db_pm1.T).to(torch.int32)
+    return (bits - dot) >> 1
+
+
 # --------------------------------------------------------------------------
 # The raw code file
 # --------------------------------------------------------------------------

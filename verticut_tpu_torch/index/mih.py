@@ -185,6 +185,20 @@ def make_entry_rows(sorted_ids: torch.Tensor, codes: torch.Tensor
     return out
 
 
+def unblock_entry_rows(entry_rows, n_words: int):
+    """Host inverse of :func:`make_entry_rows`: blocked word-major rows (an
+    ``int32`` tensor or a numpy array) -> numpy ``(ids uint32[Npad], codes
+    uint32[Npad, W])`` in entry (bucket) order, the reference's dtypes;
+    pad entries read id 0xFFFFFFFF."""
+    rows = (bits_lib.to_u32(entry_rows) if isinstance(entry_rows, torch.Tensor)
+            else np.asarray(entry_rows).view(np.uint32))
+    blk = entry_block_size(n_words)
+    ids = rows[:, :blk].reshape(-1)
+    codes = np.stack([rows[:, (1 + j) * blk:(2 + j) * blk].reshape(-1)
+                      for j in range(n_words)], axis=-1)
+    return ids, codes
+
+
 def sort_table(codes: torch.Tensor, table_id: int, s_bits: int):
     """One table's ``(sorted substrings, sorted ids)``: a stable sort of
     the substring column, whose id order within equal substrings is the

@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from verticut_tpu_torch.codes import (hamming_distance, pairwise_hamming,
-                                      unpack_bits_pm1)
+from verticut_tpu_torch.codes import (hamming_distance, hamming_via_matmul,
+                                      pairwise_hamming, unpack_bits_pm1)
 from verticut_tpu_torch.ops import topk
 from verticut_tpu_torch.ops.topk import (INF_DIST, INVALID_ID, SCAN_SENTINEL,
                                          select_asc)
@@ -185,8 +185,7 @@ def scan_matmul(queries: torch.Tensor, db: torch.Tensor, k: int,
     qpm = unpack_bits_pm1(queries, dt)
 
     def dist(_q, rows):
-        dot = (qpm @ unpack_bits_pm1(rows, dt).T).to(torch.int32)
-        return (bits - dot) >> 1
+        return hamming_via_matmul(qpm, unpack_bits_pm1(rows, dt))
 
     return _scan_chunks(queries, db, k, chunk, dist)
 
