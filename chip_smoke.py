@@ -125,7 +125,21 @@ Phases (any failure exits non-zero and prints no result):
      shortlist-1000 answer equal to the oracle on 64 queries. Blockmin
      must launch in the in-process tools, on the tensor-core instance
      only, and pairwise not at all.
-Phases 4 to 18 each set the kernels' launch counts (blockmin's also by
+ 19. the key-value store and the last five tools: (a) the reference's
+     streaming build, every (table, substring) -> (id, code) of phase 4's
+     1M corpus appended through BucketStore(DHTStore()) (appends/s, the
+     DHT's stats), every bucket's ids (in CSR order) and codes equal to
+     the card's build_index(directory="hash") (its seconds); (b)
+     kv_loadtest --backend dht -n 100000, direct and server read modes,
+     one store and --n_shards 4; (c) perf_sweep search --n 1000000 --q
+     512,8192 --k 10,100 --repeats 3 on the card, every answer equal to
+     the popcount oracle on its first 64 queries, any blockmin launch on
+     the tensor-core instance; (d) collective_bench --max_pow 17 --mesh
+     1x1x1 (gathers from a 2^24-word table in device memory; an
+     all_gather in a spawned world of one on NCCL); (e) multiproc_demo
+     --mesh 1x1x1 on the card, its three checks true; (f) tcp_echo's
+     self-test. Each with the card's name and power limit.
+Phases 4 to 19 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
 (phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
 and the sharded engines (phases 15-17) launch no kernel: their scan tier
@@ -1301,11 +1315,12 @@ ACCURACY_FIELDS = ("distance_ratio", "inaccurate_count", "accuracy",
                    "mean_radius_exact", "mean_radius_approx")
 
 
-def run_tool(tool, argv):
+def run_tool(tool, argv, head=12):
     """``tool.main(argv)`` in this process (so the kernels' counters see
-    it), its stdout and stderr captured and logged; returns ``(stdout,
-    stderr, main's return value)``. A tool that exits non-zero raises
-    SystemExit through here and ends the script."""
+    it), its stdout and stderr captured and logged (the first ``head``
+    lines of stdout); returns ``(stdout, stderr, main's return value)``. A
+    tool that exits non-zero raises SystemExit through here and ends the
+    script."""
     import io
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
@@ -1315,7 +1330,7 @@ def run_tool(tool, argv):
     lines = [ln for ln in out.getvalue().splitlines()
              if not re.fullmatch(r"-?\d+ : \d+", ln)]
     log(f"  {name} {' '.join(argv)}: {time.perf_counter() - t0:.2f} s")
-    for ln in lines[:12] + [ln for ln in err.getvalue().splitlines()
+    for ln in lines[:head] + [ln for ln in err.getvalue().splitlines()
                             if not ln.startswith(("W1", "I1"))][:6]:
         log(f"    | {ln}")
     return out.getvalue(), err.getvalue(), ret
@@ -1582,6 +1597,188 @@ def tools_phase(torch, kb, kp, dev, packed, smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the key-value store and the last five tools
+# --------------------------------------------------------------------------
+
+#: the streaming build's corpus: the 1M cell's
+N_STREAM = N_MAIN
+
+
+def stream_phase(torch, dev, packed, smi, n=N_STREAM):
+    """Phase 19a: the reference's streaming build (``build_hash_tables.cc``)
+    through ``BucketStore(DHTStore())``: every (table, substring) -> (id,
+    code) of the first ``n`` codes appended in id order, then every
+    bucket's records held against the card's ``build_index(...,
+    directory="hash")``: the buckets, laid end to end in CSR order (each
+    found by the directory's lookup), are the table's entry ids, and each
+    record's code is its id's code."""
+    from verticut_tpu_torch import bits, codes
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.index import build_index
+    from verticut_tpu_torch.kv import BucketStore, DHTStore
+
+    cfg = MIHConfig(bits=128, n_tables=4)
+    corpus = packed[:n]
+    subs = codes.all_substrings(bits.as_codes(corpus), cfg.n_tables)
+    subs = subs.numpy().view(np.uint32)
+    raw = codes.unpack_to_bytes(corpus)
+    rows = [r.tobytes() for r in raw]
+    sub_rows = subs.tolist()
+    bs = BucketStore(DHTStore(), code_bytes=cfg.bits // 8)
+    t0 = time.perf_counter()
+    for i, (rec, keys) in enumerate(zip(rows, sub_rows)):
+        for t, key in enumerate(keys):
+            bs.append(t, key, i, rec)
+    stream_s = time.perf_counter() - t0
+    stats = bs.store.stats()
+    n_app = n * cfg.n_tables
+    log(f"streaming build N={n}: {n_app} appends in {stream_s:.2f} s, "
+        f"{n_app / stream_s:.0f} appends/s (host, one thread); DHT "
+        f"{len(bs.store)} keys, stats {stats}; {smi}")
+    check(stats["crc_failures"] == 0, f"streaming build: {stats}")
+
+    t0 = time.perf_counter()
+    index = build_index(corpus, cfg, directory="hash", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_buckets = 0
+    for t in range(cfg.n_tables):
+        tab = index.tables[t]
+        keys = np.unique(subs[:, t])
+        start, count = tab.directory.lookup(bits.as_codes(keys, dev))
+        start, count = start.cpu().numpy(), count.cpu().numpy()
+        order = np.argsort(start, kind="stable")
+        start, count, keys = start[order], count[order], keys[order]
+        check(bool((count > 0).all()) and int(count.sum()) == n
+              and np.array_equal(start, np.cumsum(count) - count),
+              f"streaming build table {t}: the directory's buckets do not "
+              "tile the entry rows")
+        # records (id u32 le, code) of every bucket, end to end
+        got = np.frombuffer(b"".join(
+            bs.store.get(bs.key(t, int(k))) for k in keys),
+            np.uint8).reshape(n, 4 + cfg.bits // 8)
+        eids = bits.to_u32(tab.entry_ids)
+        check(np.array_equal(got[:, :4].copy().view("<u4")[:, 0], eids),
+              f"streaming build table {t}: bucket ids differ from the CSR")
+        check(np.array_equal(got[:, 4:], raw[eids]),
+              f"streaming build table {t}: a record's code is not its id's")
+        n_buckets += len(keys)
+    check(len(bs.store) == n_buckets,
+          f"streaming build: {len(bs.store)} keys, {n_buckets} buckets")
+    log(f"streaming build == card build_index(directory='hash') in all "
+        f"{n_buckets} buckets of {cfg.n_tables} tables (ids in CSR order, "
+        f"codes); card build {build_s:.3f} s, check "
+        f"{time.perf_counter() - t0:.1f} s")
+    bs.store.close()
+    return {"n": n, "appends_per_s": n_app / stream_s, "stream_s": stream_s,
+            "build_s": build_s, "stats": stats}
+
+
+def kv_tools_phase(torch, kb, kp, dev, smi):
+    """Phase 19b-f: kv_loadtest, perf_sweep search, collective_bench,
+    multiproc_demo and tcp_echo through their main(). Returns the
+    kernels' launches of perf_sweep's searches."""
+    import shutil
+    import tempfile
+    from verticut_tpu_torch import bits, search
+    from verticut_tpu_torch.search import single
+    from verticut_tpu_torch.tools import (collective_bench, kv_loadtest,
+                                          multiproc_demo, perf_sweep,
+                                          tcp_echo)
+
+    # (b) the store under load, in both read modes, one store and four
+    for mode in ("direct", "server"):
+        for shards in ("1", "4"):
+            out, _, _ = run_tool(kv_loadtest, [
+                "--backend", "dht", "-n", "100000", "--read_mode", mode,
+                "--n_shards", shards])
+            rec = json.loads(out.splitlines()[-1])
+            check(rec["ops"] == 100000 and rec["p50_us"] > 0,
+                  f"kv_loadtest {mode} x{shards}: {rec}")
+            stats = [ln for ln in out.splitlines() if ln.startswith("stats:")]
+            check(bool(stats) == (mode == "direct" and shards == "1"),
+                  f"kv_loadtest {mode} x{shards}: stats lines {stats}")
+            check(all("'crc_failures': 0" in ln for ln in stats),
+                  f"kv_loadtest: {stats}")
+    log(f"kv_loadtest: {smi}")
+
+    # (c) perf_sweep search at 1M on the card, every answer held to the
+    # oracle on its first 64 queries
+    seen = {}
+
+    def recorded(index, queries, scfg, *a):
+        res = single.mih_search(index, queries, scfg, *a)
+        seen[queries.shape[0], scfg.knn] = (index, queries, res)
+        return res
+
+    zero_counts(kb, kp)
+    with patched((search, "mih_search", recorded)):
+        out, _, _ = run_tool(perf_sweep, [
+            "search", "--n", str(N_MAIN), "--q", "512,8192", "--k", "10,100",
+            "--repeats", "3"])
+    launches = {"blockmin": kb.launches,
+                "by_instance": dict(kb.launches_by_instance),
+                "pairwise": kp.launches}
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check([r["cell"] for r in rows] == [
+        {"n": N_MAIN, "q": q, "k": k} for q in (512, 8192) for k in (10, 100)],
+        f"perf_sweep rows {rows}")
+    check(sorted(seen) == [(512, 10), (512, 100), (8192, 10), (8192, 100)],
+          f"perf_sweep searched {sorted(seen)}")
+    for (nq, k), (index, queries, res) in sorted(seen.items()):
+        q = bits.as_codes(queries[:64], dev)
+        od, oi = oracle(q, index.codes, k)
+        check(torch.equal(res.dists[:64], od) and torch.equal(res.ids[:64],
+                                                              oi),
+              f"perf_sweep q={nq} k={k}: not the oracle's answer")
+    for r in rows:
+        log(f"perf_sweep N={N_MAIN} q={r['cell']['q']} k={r['cell']['k']}: "
+            f"QPS min {r['qps']['min']} avg {r['qps']['avg']} max "
+            f"{r['qps']['max']} (3 runs); oracle-equal on 64 queries")
+    log(f"perf_sweep launches: {launches}; {smi}")
+    # the sweep's queries are corpus rows: few or no stragglers reach the
+    # scan tier, but whatever blockmin launches must be tensor-core
+    check(launches["by_instance"]["generic"] == 0,
+          f"perf_sweep: blockmin launches {launches}, not on the "
+          "tensor-core instance only")
+    check(launches["pairwise"] == 0,
+          f"perf_sweep: {launches['pairwise']} pairwise launches")
+    seen.clear()
+
+    # (d) the gather sweep on the card's memory and an all_gather in a
+    # world of one on NCCL
+    out, _, _ = run_tool(collective_bench, ["--max_pow", "17", "--mesh",
+                                            "1x1x1"], head=20)
+    kinds = [ln.split()[0] for ln in out.splitlines()[1:]]
+    check(kinds == ["gather"] * 6 + ["all_gather"] * 6,
+          f"collective_bench lines {kinds}")
+    log(f"collective_bench: {smi}")
+
+    # (e) the multi-process demo in a world of one on the card
+    tmp = tempfile.mkdtemp(prefix="vt_multiproc_")
+    try:
+        _, _, art = run_tool(multiproc_demo, [
+            "--mesh", "1x1x1", "--out", os.path.join(tmp, "MULTIPROC.json")])
+        check(art["ok"] and art["oracle_multiset_equal"]
+              and art["id_dist_equal"] and art["save_load_roundtrip_equal"],
+              f"multiproc_demo: {art}")
+        check(art["n_processes"] == 1 and art["platform"].startswith("cuda")
+              and "nccl" in art["platform"], f"multiproc_demo: {art}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"multiproc_demo 1x1x1: build {art['build_s']} s, search "
+        f"{art['search_s']} s, total {art['total_s']} s; {smi}")
+
+    # (f) the TCP echo control
+    out, _, _ = run_tool(tcp_echo, [], head=20)
+    sizes = [json.loads(ln)["size"] for ln in out.splitlines()]
+    check(sizes == [1 << i for i in range(13)], f"tcp_echo sizes {sizes}")
+    log(f"tcp_echo: {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1759,6 +1956,16 @@ def main() -> int:
 
     # 18. the command-line tools (counts zeroed inside)
     tools_launches = tools_phase(torch, kb, kp, dev, packed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. the key-value store and the last five tools (counts zeroed
+    # inside, before perf_sweep)
+    t0 = time.perf_counter()
+    stream = stream_phase(torch, dev, packed, smi)
+    kv_launches = kv_tools_phase(torch, kb, kp, dev, smi)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s (the stream "
+        f"{stream['stream_s']:.1f} s)")
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
@@ -1777,6 +1984,8 @@ def main() -> int:
          "sharded_launches": sharded_launches["blockmin"],
          "tools_phase_launches": tools_launches["blockmin"],
          "tools_phase_launches_by_instance": tools_launches["by_instance"],
+         "perf_sweep_launches": kv_launches["blockmin"],
+         "perf_sweep_launches_by_instance": kv_launches["by_instance"],
          "max_abs_err": max_err["blockmin"],
          "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
          "bound_ms": bm_bound, "bound_by": bm_by,
@@ -1795,6 +2004,7 @@ def main() -> int:
          "launches": linear["pairwise"], "max_abs_err": max_err["pairwise"],
          "sharded_launches": sharded_launches["pairwise"],
          "tools_phase_launches": tools_launches["pairwise"],
+         "perf_sweep_launches": kv_launches["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
          "bound_ms": pairwise_bound(Q, N_PAIRWISE, 4), "bound_by": "bytes",
          "bound_what": "device-memory stores", "library_ms": pw_lib,

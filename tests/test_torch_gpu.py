@@ -10,6 +10,7 @@ JAX it runs apart from tests/conftest.py:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import json
 import threading
 
 import numpy as np
@@ -351,3 +352,45 @@ def test_sharded_engines_in_a_world_of_one_on_the_card(cuda_device):
         below = want["dists"] < kth
         assert np.array_equal(np.where(below, got["ids"], -1),
                               np.where(below, want["ids"], -1)), case
+
+
+def test_perf_sweep_search_on_card(cuda_device, capsys, monkeypatch):
+    """``perf_sweep search`` on the card: one row per (n, q, k) cell, each
+    timed search equal to the popcount oracle, and the scan tier on
+    blockmin's tensor-core instance only."""
+    from verticut_tpu_torch import search
+    from verticut_tpu_torch.ops.hamming import scan_popcount
+    from verticut_tpu_torch.search import single
+    from verticut_tpu_torch.tools import perf_sweep
+    seen = []
+
+    def recorded(index, queries, scfg, *a):
+        res = single.mih_search(index, queries, scfg, *a)
+        seen.append((index, queries, scfg.knn, res))
+        return res
+
+    monkeypatch.setattr(search, "mih_search", recorded)
+    before = dict(kb.launches_by_instance)
+    perf_sweep.main(["search", "--n", "50000", "--q", "64,3000", "--k",
+                     "10,100", "--repeats", "1"])
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["cell"] for r in rows] == [
+        {"n": 50000, "q": q, "k": k} for q in (64, 3000) for k in (10, 100)]
+    assert all(r["qps"]["min"] > 0 for r in rows)
+    assert len(seen) == 8
+    for index, queries, k, res in seen:
+        q = bits.as_codes(queries, cuda_device)
+        od, oi = scan_popcount(q, index.codes, k)
+        assert torch.equal(res.dists, od.cpu()) and torch.equal(
+            res.ids, oi.cpu())
+    assert kb.launches_by_instance["generic"] == before["generic"]
+
+
+def test_collective_bench_gather_sweep_on_card(cuda_device, capsys):
+    from verticut_tpu_torch.tools import collective_bench
+    collective_bench.main(["--max_pow", "9"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("devices: ['cuda:0 ")
+    gathers = [ln.split() for ln in lines[1:]]
+    assert [int(g[1]) for g in gathers] == [1, 8, 64, 512]
+    assert all(g[0] == "gather" and float(g[3]) > 0 for g in gathers)

@@ -293,7 +293,7 @@ def _jax_exports():
     root = pathlib.Path(verticut_tpu.__file__).parent
     out = []
     for pkg in ("index", "ops", "search", "parallel", "service", "utils",
-                "models"):
+                "models", "kv"):
         tree = ast.parse((root / pkg / "__init__.py").read_text())
         names = {a.asname or a.name for node in tree.body
                  if isinstance(node, ast.ImportFrom) for a in node.names}

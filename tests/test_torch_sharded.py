@@ -44,7 +44,8 @@ def world():
     """The port's results, computed in a world of 8 while the tests run
     the reference."""
     with ThreadPoolExecutor(1) as ex:
-        yield ex.submit(spawn, cases.run_sharded, 8, threads=1)
+        yield ex.submit(spawn, cases.run_sharded, 8, device="cpu",
+                        threads=1)
 
 
 def port_case(world, name):
@@ -182,7 +183,7 @@ def test_sharded_scale_1m_rows():
     db = jcodes.clustered_codes(13, 1_000_000, 128, n_clusters=5000,
                                 flip_p=0.02)
     q = cases.flipped_rows(db, 64, 3)
-    got = spawn_world(cases.run_sharded_scale, 8, db, q)[0]
+    got = spawn_world(cases.run_sharded_scale, 8, db, q, device="cpu")[0]
     scfg = JSearchConfig(knn=10)
     want = jax_search(jax_build(db, JMIHConfig(bits=128, n_tables=4),
                                 jax_make_mesh(4, 2, 1)), q, scfg)

@@ -54,7 +54,8 @@ def world():
     jax_save(os.path.join(tmp, "jax_saved"),
              jax_build(db, JCFG, jax_make_mesh(4, 2, 1), slack=2.5))
     with ThreadPoolExecutor(1) as ex:
-        yield ex.submit(spawn, cases.run_compact, 8, tmp, threads=1), tmp
+        yield ex.submit(spawn, cases.run_compact, 8, tmp, device="cpu",
+                        threads=1), tmp
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -248,7 +249,7 @@ def test_compact_scale_10m_rows():
     """A compact sharded index of 10M clustered codes in a world of 8,
     oracle-verified on 64 queries, with the memory math of the reference's
     scale case."""
-    got, stats = spawn(cases.run_compact_scale, 8)[0]
+    got, stats = spawn(cases.run_compact_scale, 8, device="cpu")[0]
     assert stats["bytes_per_code"] < 60
     db = cases.scale_db()
     ld, _ = linear_search(as_codes(db[:64], "cpu"), as_codes(db, "cpu"), 10,

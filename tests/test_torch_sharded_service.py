@@ -18,7 +18,7 @@ from verticut_tpu_torch.parallel.world import spawn
 @pytest.mark.parametrize("shape", [(1, 1, 1), (4, 2, 1), (1, 1, 3)])
 def test_sharded_server_answers_equal_sharded_search(shape):
     n = shape[0] * shape[1] * shape[2]
-    out = spawn(cases.run_server, n, shape, threads=1)
+    out = spawn(cases.run_server, n, shape, device="cpu", threads=1)
     got = out[0]
     assert got["got_ids"] == got["want_ids"]
     assert got["got_batch"] == got["want_batch"]
@@ -35,7 +35,7 @@ def test_single_device_mesh_removes_its_store():
     """A world of one started by ``single_device_mesh`` rendezvouses
     through a file store in a temporary directory, which ``close_world``
     removes."""
-    got = spawn(cases.run_own_world_of_one, 1, threads=1)[0]
+    got = spawn(cases.run_own_world_of_one, 1, device="cpu", threads=1)[0]
     assert got["shape"] == {"table": 1, "shard": 1, "query": 1}
     assert got["coords"] == (0, 0, 0) and got["backend"] == "gloo"
     assert got["during"] and not got["after"]

@@ -220,7 +220,8 @@ def test_build_index_mesh_matches_jax(files, capsys):
                 assert json.load(fa) == json.load(fb), name
     q = files["packed"][:16]
     port_res, jax_res = spawn(cases.run_loaded_compact, 4,
-                              [port_dir, jax_dir], q, threads=1)[0]
+                              [port_dir, jax_dir], q, device="cpu",
+                              threads=1)[0]
     want = jax_compact_search(jidx, q, JSearchConfig(knn=10))
     for f in ("dists", "ids", "radius", "n_probes", "n_nonempty", "n_cands"):
         assert np.array_equal(port_res[f], jax_res[f]), f

@@ -4,20 +4,22 @@ operands.
 Each ``verticut_tpu_torch/csrc/<name>.cu`` is a plain-C-interface source
 that ``nvcc`` compiles for ``sm_90a`` into its own shared library,
 ``verticut_tpu_torch/_build/libvt_<name>.so``, at first use and again when
-the source is newer than the library; each ``csrc/<name>.cc`` (host code,
-the hash directory's builder) is compiled the same way by the host C++
-compiler. The library is loaded with ctypes. A failed build raises: no
-caller falls back to a plain twin.
+the source, or a ``csrc`` header it includes, is newer than the library;
+each ``csrc/<name>.cc`` (host code: the hash directory's builder, the
+key-value store) is compiled the same way by the host C++ compiler. The
+library is loaded with ctypes. A failed build raises: no caller falls back
+to a plain twin.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -72,13 +74,32 @@ def _host_cxx() -> str:
     return cxx
 
 
+def dependencies(src: str) -> List[str]:
+    """``src`` and every header of its directory that it includes with
+    ``#include "..."``, directly or through another such header."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        with open(path) as f:
+            for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                                  re.M):
+                dep = os.path.join(os.path.dirname(src), inc)
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return out
+
+
 def build(name: str) -> None:
     """Compile ``csrc/<name>.cu`` with nvcc, or ``csrc/<name>.cc`` with the
-    host compiler, if its library is missing or older than the source."""
+    host compiler, if its library is missing or older than the source or a
+    header the source includes."""
     with _lock(name):
         src, lib = source(name), lib_path(name)
-        if (os.path.exists(lib)
-                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+        if os.path.exists(lib) and os.path.getmtime(lib) >= max(
+                os.path.getmtime(p) for p in dependencies(src)):
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
@@ -93,19 +114,22 @@ def build(name: str) -> None:
         os.replace(tmp, lib)
 
 
-def load(name: str, entries: Dict[str, Sequence]) -> ctypes.CDLL:
+def load(name: str, entries: Dict[str, Sequence],
+         restypes: Optional[Dict[str, object]] = None) -> ctypes.CDLL:
     """The library, built if needed and loaded once per process.
-    ``entries`` maps each entry function to its ctypes argument types;
-    every entry function returns an int (a CUDA library's, a
-    ``cudaError_t``), and every CUDA library exports ``const char*
+    ``entries`` maps each entry function to its ctypes argument types and
+    ``restypes`` an entry to its return type (``None`` for ``void``); an
+    entry not in ``restypes`` returns an int (a CUDA library's, a
+    ``cudaError_t``). Every CUDA library exports ``const char*
     vt_error_string(int)``."""
+    restypes = restypes or {}
     with _lock(name):
         if name not in _libs:
             build(name)
             lib = ctypes.CDLL(lib_path(name))
             for fn, argtypes in entries.items():
                 getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restypes.get(fn, ctypes.c_int)
             if source(name).endswith(".cu"):
                 lib.vt_error_string.argtypes = [ctypes.c_int]
                 lib.vt_error_string.restype = ctypes.c_char_p

@@ -134,15 +134,29 @@ def _rank_main(rank: int, fn, world_size: int, store_dir: str, device,
         pickle.dump(out, f)
 
 
-def spawn(fn, world_size: int, *args, device="cpu",
+def spawn(fn, world_size: int, *args, device=None,
           threads: Optional[int] = None) -> List[Any]:
     """Run ``fn(rank, *args)`` in a new world of ``world_size`` processes
     and return each rank's result, by rank. ``fn`` must be importable by
     its module and name (a spawned process imports that module; keep it
-    free of heavy imports). ``device``: ``"cpu"`` (gloo) or ``"cuda"``
-    (NCCL, rank r on card r). ``threads``: intra-op threads per rank, by
-    default this host's cores shared out among the ranks. A rank that
-    raises ends the world and raises here."""
+    free of heavy imports). ``device``: by default the card (NCCL, rank r
+    on card r; raising where this host has fewer than ``world_size``
+    cards), ``"cpu"`` for a gloo world. ``threads``: intra-op threads per
+    rank, by default this host's cores shared out among the ranks. A rank
+    that raises ends the world and raises here."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have == 0:
+            raise RuntimeError("no CUDA device: the world runs on the card "
+                               "by default; pass device='cpu' for a CPU "
+                               "world")
+        if have < world_size:
+            raise RuntimeError(
+                f"a world of {world_size} ranks on the card needs "
+                f"{world_size} CUDA devices, one per rank; this host has "
+                f"{have}")
+    device = "cpu" if cpu else "cuda"
     import torch.multiprocessing as mp
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // world_size)
