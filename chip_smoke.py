@@ -139,7 +139,20 @@ Phases (any failure exits non-zero and prints no result):
      all_gather in a spawned world of one on NCCL); (e) multiproc_demo
      --mesh 1x1x1 on the card, its three checks true; (f) tcp_echo's
      self-test. Each with the card's name and power limit.
-Phases 4 to 19 each set the kernels' launch counts (blockmin's also by
+ 20. the profiling and measurement tools, each main() called in this
+     process (virtual_scale_run spawns its rank): profile_stages2 and
+     profile_stages (the radius step's components at stage-1 and stage-2
+     shapes, launches and device ms of each), profile_tiers,
+     profile_fused_ablate (R = 4), qscale_bench (6 batches a cell) and
+     pipeline_overlap_bench at 1M codes; profile_scan and int8_scan_bench
+     at 16M (both blockmin instances); gather_bench (16M) and
+     microbench_r5 (1M); compact_chip_bench and virtual_scale_run --mesh
+     1x1x1 (a spawned rank on NCCL) at 20M, phase 16 running the compact
+     layout at 100M. Every tool's checks must hold; each record is logged
+     with the card's name and power limit (and written whole to
+     $VERTICUT_PROFILE_OUT/<tool>.json where that is set); the phase's
+     seconds are printed.
+Phases 4 to 20 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
 (phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
 and the sharded engines (phases 15-17) launch no kernel: their scan tier
@@ -1779,6 +1792,102 @@ def kv_tools_phase(torch, kb, kp, dev, smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 20: the profiling and measurement tools
+# --------------------------------------------------------------------------
+
+#: the scan tools' corpus (the JAX tools' default) and the mesh tools'
+N_PROFILE_SCAN = 16_000_000
+N_PROFILE_MESH = 20_000_000
+#: where phase 20 keeps every tool's whole JSON record and artifact (a
+#: temporary directory, removed at the end, when unset)
+PROFILE_OUT = os.environ.get("VERTICUT_PROFILE_OUT")
+
+
+def _profile_runs(torch, runs, out, recs, seconds, smi):
+    """Phase 20's tools one after another: each main() in this process,
+    its checks held, its record logged and written to ``out``."""
+    for tool, argv in runs:
+        name = tool.__name__.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        _, _, rec = run_tool(tool, argv, head=0)
+        seconds[name] = time.perf_counter() - t0
+        check(isinstance(rec, dict), f"{name}: no record")
+        bad = [c for c, v in rec.get("checks", {}).items() if not v]
+        check(not bad, f"{name}: checks failed {bad}")
+        for key in ("ok", "distances_equal", "ids_equal",
+                    "oracle_multiset_equal", "load_multiset_equal"):
+            check(rec.get(key, True) is True, f"{name}: {key} {rec.get(key)}")
+        recs[name] = rec
+        with open(os.path.join(out, f"{name}.json"), "w") as f:
+            json.dump(rec, f)
+        short = {k: v for k, v in rec.items() if k != "profile"}
+        log(f"  {name}: {json.dumps(short)[:1500]}; {smi}")
+        # each tool from a clean allocator, as in a process of its own
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_tools_phase(torch, kb, kp, dev, smi):
+    """Phase 20: every profiling tool of the port through its main(), at
+    the JAX tools' sizes but for the mesh tools' 20M (phase 16 runs the
+    compact layout at 100M); each tool's checks must hold (a failing check
+    exits the tool non-zero, which ends the script). Every record is logged
+    beside the card's name and power limit and written whole to
+    ``$VERTICUT_PROFILE_OUT/<tool>.json`` when that is set. Returns the
+    kernels' launches of the in-process tools and the records."""
+    import shutil
+    import tempfile
+    from verticut_tpu_torch.tools import (
+        compact_chip_bench, gather_bench, int8_scan_bench, microbench_r5,
+        pipeline_overlap_bench, profile_fused_ablate, profile_scan,
+        profile_stages, profile_stages2, profile_tiers, qscale_bench,
+        virtual_scale_run)
+    out = PROFILE_OUT or tempfile.mkdtemp(prefix="vt_profile_")
+    os.makedirs(out, exist_ok=True)
+    n = str(N_MAIN)
+    runs = (
+        (profile_stages2, ["--n", n]),
+        (profile_stages, ["--n", n]),
+        (profile_tiers, ["--n", n]),
+        (profile_fused_ablate, ["--n", n, "--r", "4"]),
+        (qscale_bench, ["--n", n, "--batches", "6"]),
+        (pipeline_overlap_bench, ["--n", n]),
+        (profile_scan, [str(N_PROFILE_SCAN)]),
+        (int8_scan_bench, [str(N_PROFILE_SCAN)]),
+        (gather_bench, []),
+        (microbench_r5, []),
+        (compact_chip_bench, [str(N_PROFILE_MESH), os.path.join(
+            out, "BENCH_COMPACT_torch.json")]),
+        (virtual_scale_run, [str(N_PROFILE_MESH), os.path.join(
+            out, "VIRTUAL_SCALE_torch.json"), "--mesh", "1x1x1"]),
+    )
+    t_phase = time.perf_counter()
+    zero_counts(kb, kp)
+    recs, seconds = {}, {}
+    try:
+        _profile_runs(torch, runs, out, recs, seconds, smi)
+    finally:
+        if not PROFILE_OUT:
+            shutil.rmtree(out, ignore_errors=True)
+    check(recs["virtual_scale_run"]["backend"].startswith("cuda"),
+          f"virtual_scale_run: {recs['virtual_scale_run']['backend']}")
+    launches = {"blockmin": kb.launches, "pairwise": kp.launches,
+                "by_instance": dict(kb.launches_by_instance)}
+    log(f"phase 20 launches (in-process tools): {launches}; seconds by "
+        f"tool {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    # profile_scan and int8_scan_bench run both instances; the scan tiers
+    # of the fused tools the tensor-core one
+    check(all(v > 0 for v in launches["by_instance"].values()),
+          f"phase 20: blockmin launches {launches}")
+    check(launches["pairwise"] == 0,
+          f"phase 20: {launches['pairwise']} pairwise launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1966,6 +2075,11 @@ def main() -> int:
     kv_launches = kv_tools_phase(torch, kb, kp, dev, smi)
     log(f"phase 19: {time.perf_counter() - t0:.1f} s (the stream "
         f"{stream['stream_s']:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. the profiling and measurement tools (counts zeroed inside)
+    profile_launches, _ = profile_tools_phase(torch, kb, kp, dev, smi)
 
     src = "verticut_tpu/ops/pallas/linear_scan.py"
     bm_bound, bm_by = blockmin_bound(Q, N_MAIN, N_MAIN, 4, 512)
@@ -1986,6 +2100,9 @@ def main() -> int:
          "tools_phase_launches_by_instance": tools_launches["by_instance"],
          "perf_sweep_launches": kv_launches["blockmin"],
          "perf_sweep_launches_by_instance": kv_launches["by_instance"],
+         "profile_phase_launches": profile_launches["blockmin"],
+         "profile_phase_launches_by_instance":
+             profile_launches["by_instance"],
          "max_abs_err": max_err["blockmin"],
          "ms": tc[Q, 512, False][1], "plain_ms": tc[Q, 512, False][2],
          "bound_ms": bm_bound, "bound_by": bm_by,
@@ -2005,6 +2122,7 @@ def main() -> int:
          "sharded_launches": sharded_launches["pairwise"],
          "tools_phase_launches": tools_launches["pairwise"],
          "perf_sweep_launches": kv_launches["pairwise"],
+         "profile_phase_launches": profile_launches["pairwise"],
          "ms": pw[1], "plain_ms": pw[2],
          "bound_ms": pairwise_bound(Q, N_PAIRWISE, 4), "bound_by": "bytes",
          "bound_what": "device-memory stores", "library_ms": pw_lib,

@@ -148,9 +148,9 @@ def test_folded_selection_matches_single_chunk_and_jax(monkeypatch, k,
     calls = []
     twin = kb.blockmin
 
-    def counted(queries, rows, n_rows, blk):
+    def counted(queries, rows, n_rows, blk, which=None):
         calls.append((queries.shape[0], rows.shape[0]))
-        return twin(queries, rows, n_rows, blk)
+        return twin(queries, rows, n_rows, blk, which)
 
     monkeypatch.setattr(kb, "blockmin", counted)
     monkeypatch.setattr(hamming, "SLICE_ELEMS", 9 * (2048 // block))

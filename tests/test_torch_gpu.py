@@ -237,9 +237,9 @@ def test_folded_scan_on_card_matches_twin(cuda_device, monkeypatch, nq, k,
     calls = []
     kernel = kb.blockmin
 
-    def counted(queries, rows, n, blk):
+    def counted(queries, rows, n, blk, which=None):
         calls.append(queries.shape[0])
-        return kernel(queries, rows, n, blk)
+        return kernel(queries, rows, n, blk, which)
 
     monkeypatch.setattr(kb, "blockmin", counted)
     before = kb.launches_by_instance["tensor"]
@@ -394,3 +394,35 @@ def test_collective_bench_gather_sweep_on_card(cuda_device, capsys):
     gathers = [ln.split() for ln in lines[1:]]
     assert [int(g[1]) for g in gathers] == [1, 8, 64, 512]
     assert all(g[0] == "gather" and float(g[3]) > 0 for g in gathers)
+
+
+@pytest.mark.parametrize("block", [128, 512])
+def test_forced_generic_instance_on_tensor_shapes(cuda_device, block):
+    """profile_scan's and int8_scan_bench's switch: the generic instance
+    launched at a shape the tensor-core one takes, equal to the twin and
+    to the tensor-core instance, counted under its own name, and the
+    scan on either instance equal."""
+    rng = np.random.default_rng(block)
+    q, db = _codes(rng, 300, 4).cuda(), _codes(rng, 20000, 4).cuda()
+    before = dict(kb.launches_by_instance)
+    got = kb.blockmin(q, db, 20000, block, "generic")
+    torch.cuda.synchronize()
+    assert kb.launches_by_instance["generic"] == before["generic"] + 1
+    assert kb.launches_by_instance["tensor"] == before["tensor"]
+    assert torch.equal(got, kb.blockmin_reference(q, db, 20000, block))
+    assert torch.equal(got, kb.blockmin(q, db, 20000, block, "tensor"))
+    from verticut_tpu_torch.ops.hamming import scan_blockmin
+    a = scan_blockmin(q, db, 10, block=block, which="generic")
+    b = scan_blockmin(q, db, 10, block=block)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_profile_tools_on_card(cuda_device, capsys):
+    """The profiling tools' mains at small sizes on the card: every check
+    holds and the profiled component rows saw kernels."""
+    from verticut_tpu_torch.tools import profile_scan, profile_stages2
+    rec = profile_stages2.main(["--n", "50000", "--q", "512", "--r", "2"])
+    assert all(p["launches"] > 0 and p["device_ms"] > 0
+               for p in rec["profile"].values())
+    rec = profile_scan.main(["200000", "10", "--q", "256"])
+    assert rec["checks"] and all(rec["checks"].values())

@@ -361,6 +361,18 @@ TOOLS = {
     "accuracy_test": ["--synth", "1000"],
     "accuracy_sweep": ["x.json", "1000", "8"],
     "bigann": ["--synth", "1000"],
+    "profile_stages": ["--n", "1000"],
+    "profile_stages2": ["--n", "1000"],
+    "profile_tiers": ["--n", "1000"],
+    "profile_fused_ablate": ["--n", "1000"],
+    "qscale_bench": ["--n", "1000"],
+    "pipeline_overlap_bench": ["--n", "1000"],
+    "profile_scan": ["1000"],
+    "int8_scan_bench": ["1000"],
+    "gather_bench": ["--n", "1000"],
+    "microbench_r5": ["--n", "1000"],
+    "compact_chip_bench": ["1000", "x.json"],
+    "virtual_scale_run": ["1000", "x.json", "--mesh", "1x1x1"],
 }
 
 
@@ -388,7 +400,7 @@ def test_port_and_chip_smoke_import_no_jax():
             assert not pat.search(f.read()), path
     code = ("import sys\n"
             + "".join(f"import verticut_tpu_torch.tools.{t}\n"
-                      for t in list(TOOLS) + ["_mesh"])
+                      for t in list(TOOLS) + ["_mesh", "_profile"])
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'verticut_tpu')]\n"
               "assert not bad, bad\n")

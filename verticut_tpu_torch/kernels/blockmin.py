@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -138,16 +138,21 @@ def blockmin_reference(queries: torch.Tensor, db: torch.Tensor, n: int,
 
 
 def blockmin(queries: torch.Tensor, db: torch.Tensor, n: int,
-             block: int) -> torch.Tensor:
+             block: int, which: Optional[str] = None) -> torch.Tensor:
     """Per-block minimum distances ``int32[Q, ceil(N / block)]``. CPU
-    tensors take the plain twin; CUDA tensors launch the kernel."""
+    tensors take the plain twin; CUDA tensors launch the kernel, on the
+    instance ``which`` (one of :data:`INSTANCES`; by default
+    :func:`instance`'s choice, which the search paths take)."""
     _check(queries, db, n, block)
+    if which is not None and which not in INSTANCES:
+        raise ValueError(f"unknown blockmin instance {which!r} (one of "
+                         f"{INSTANCES})")
     if queries.device.type == "cpu":
         return blockmin_reference(queries, db, n, block)
     _build.check_kernel_operands(NAME, queries, db)
     lib = _load()
     nq, w = queries.shape
-    which = instance(w, block)
+    which = which or instance(w, block)
     out = torch.empty((nq, -(-db.shape[0] // block)), dtype=torch.int32,
                       device=queries.device)
     if out.numel() == 0:

@@ -74,9 +74,37 @@ def _fold_blocks(q: int, block: int) -> int:
     return max(unit, SLICE_ELEMS // max(q, 1) // unit * unit)
 
 
+def select_blocks(queries: torch.Tensor, db: torch.Tensor, k: int,
+                  block: int, which=None) -> torch.Tensor:
+    """Pass 1 of :func:`scan_blockmin`: the ``min(k, nb)`` blocks of each
+    query with the smallest ``(min, block)`` keys, ``int64[Q, kb]`` block
+    indices in key order, the selection folded over corpus chunks.
+    ``which``: the blockmin instance (:func:`kernels.blockmin.blockmin`)."""
+    from verticut_tpu_torch.kernels.blockmin import blockmin
+    q = queries.shape[0]
+    n = db.shape[0]
+    nb = -(-n // block)
+    kb = min(k, nb)
+    idx_bits = max(1, (nb - 1).bit_length())
+    cb = _fold_blocks(q, block)
+    top = None
+    for c0 in range(0, nb, cb):
+        c1 = min(c0 + cb, nb)
+        rows = db[c0 * block:min(c1 * block, n)]
+        bm = blockmin(queries, rows, rows.shape[0], block,
+                      which)                                   # [Q, c1 - c0]
+        keys = (bm.to(torch.int64) << idx_bits) | torch.arange(
+            c0, c1, dtype=torch.int64, device=db.device)
+        del bm
+        top = select_asc(keys if top is None else torch.cat([top, keys], -1),
+                         kb)
+        del keys
+    return top & ((1 << idx_bits) - 1)
+
+
 def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
                   chunk: int = 65536, block: int = 512,
-                  engine: str = "auto"):
+                  engine: str = "auto", which=None):
     """Exact top-k ``([Q, k], [Q, k])`` ascending by ``(dist, id)`` over
     the row-major ``int32[N, W]`` corpus, by block-min pre-selection.
 
@@ -104,34 +132,20 @@ def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
     that does not fit beyond ~24M codes (``hamming.py:136-146``). The port
     has one pass 1 for every engine, which reads the row-major corpus in
     place and pads nothing, so ``chunk`` only has to be a multiple of
-    ``block``, as the reference requires. An unknown engine raises."""
-    from verticut_tpu_torch.kernels.blockmin import blockmin
+    ``block``, as the reference requires. An unknown engine raises.
+    ``which`` picks the blockmin instance, as the reference's ``acc`` picks
+    its kernel's operand type; by default the search paths' choice."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (one of {ENGINES})")
     if chunk % block:
         raise ValueError(f"chunk {chunk} not a multiple of block {block}")
     q, w = queries.shape
     n = db.shape[0]
-    nb = -(-n // block)
-    if nb == 0 or q == 0:
+    if n == 0 or q == 0:
         return _decode(torch.empty((q, 0), dtype=torch.int64,
                                    device=queries.device), k)
-    kb = min(k, nb)
-    idx_bits = max(1, (nb - 1).bit_length())
-    cb = _fold_blocks(q, block)
-    top = None
-    for c0 in range(0, nb, cb):
-        c1 = min(c0 + cb, nb)
-        rows = db[c0 * block:min(c1 * block, n)]
-        bm = blockmin(queries, rows, rows.shape[0], block)     # [Q, c1 - c0]
-        keys = (bm.to(torch.int64) << idx_bits) | torch.arange(
-            c0, c1, dtype=torch.int64, device=db.device)
-        del bm
-        top = select_asc(keys if top is None else torch.cat([top, keys], -1),
-                         kb)
-        del keys
-    bidx = top & ((1 << idx_bits) - 1)
-    del top
+    bidx = select_blocks(queries, db, k, block, which)
+    kb = bidx.shape[1]
     qs = max(1, SLICE_ELEMS // (kb * block * w))
     parts = [_rescore_blocks(queries[q0:q0 + qs], db, n, bidx[q0:q0 + qs],
                              k, block) for q0 in range(0, q, qs)]

@@ -677,6 +677,15 @@ def _unpack_row(row: torch.Tensor, k: int, id_bits: int) -> dict:
                 n_cands=stats[:, 2].to(torch.int32))
 
 
+def fused_stages(index: MIHIndex, scfg: SearchConfig, schedule):
+    """The stages of ``schedule`` that the fused driver runs: those of at
+    most ``scfg.fused_max_masks`` flip masks."""
+    mask_bits = _index_mask_bits(index)
+    return tuple((r, g) for r, g in schedule
+                 if sum(enumeration.n_masks(mask_bits, x) for x in g)
+                 <= scfg.fused_max_masks)
+
+
 def mih_search_dispatch(index: MIHIndex, queries,
                         scfg: SearchConfig = SearchConfig(),
                         _cap: Optional[int] = None
@@ -693,11 +702,7 @@ def mih_search_dispatch(index: MIHIndex, queries,
     if not scfg.fused:
         return None
     scfg, queries, schedule = _prepare(index, queries, scfg)
-    mask_bits = _index_mask_bits(index)
-    schedule = tuple(
-        (r, g) for r, g in schedule
-        if sum(enumeration.n_masks(mask_bits, x) for x in g)
-        <= scfg.fused_max_masks)
+    schedule = fused_stages(index, scfg, schedule)
     if not schedule:
         return None
     ready = None
@@ -725,15 +730,22 @@ def mih_search_finalize(h: FusedHandle) -> SearchResult:
 
 
 def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
-               _cap: Optional[int], schedule) -> torch.Tensor:
+               _cap: Optional[int], schedule, *, scan: bool = True,
+               retry: bool = True,
+               scan_dominance: Optional[int] = None) -> torch.Tensor:
     """The whole schedule through :func:`run_pipeline`, as the packed
-    result row."""
+    result row. The keywords switch pieces off for the profiling tools
+    (``tools/_profile.fused_variant``): ``scan`` the scan ladder, ``retry``
+    the overflow retry ladder; ``scan_dominance`` replaces the dominance
+    gate's threshold (by default ``nq // 2`` in exact mode from
+    :data:`SCAN_DOMINANCE_MIN_NQ` queries, else 0)."""
     cfg = index.cfg
     dev = index.device
     nq = queries.shape[0]
     k, pool_size = scfg.knn, scfg.pool_size
     mask_bits = _index_mask_bits(index)
-    scan_budget = min(nq, max(64, nq // 64)) if index.codes is not None else 0
+    scan_budget = (min(nq, max(64, nq // 64))
+                   if index.codes is not None and scan else 0)
     caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
                                          index.fetch_block(), index.is_range)
                  for _, g in schedule)
@@ -757,17 +769,19 @@ def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
         return scan_blockmin(sq, index.codes, k,
                              block=512 if k <= 32 else 128)
 
+    if scan_dominance is None:
+        scan_dominance = (nq // 2 if scan_budget and not scfg.approximate
+                          and nq >= SCAN_DOMINANCE_MIN_NQ else 0)
     full = run_pipeline(
         step_fn, scan_fn if index.codes is not None else None, queries,
         index.table_subs(queries), init_state(nq, pool_size, dev),
         schedule=schedule, caps=caps, batch_caps=batch_caps, knn=k,
         pool_size=pool_size,
         retry_caps=(None if overflow_to_scan or retry_caps == caps
-                    else retry_caps),
-        retry_budget=0 if overflow_to_scan else min(nq, max(64, nq // 4)),
-        scan_budget=scan_budget,
-        scan_dominance=(nq // 2 if scan_budget and not scfg.approximate
-                        and nq >= SCAN_DOMINANCE_MIN_NQ else 0),
+                    or not retry else retry_caps),
+        retry_budget=(0 if overflow_to_scan or not retry
+                      else min(nq, max(64, nq // 4))),
+        scan_budget=scan_budget, scan_dominance=scan_dominance,
         overflow_to_scan=overflow_to_scan)
     return _pack_row(full, k, _result_id_bits(index.tables, cfg.bits))
 
