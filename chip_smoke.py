@@ -97,12 +97,19 @@ Phases (any failure exits non-zero and prints no result):
      n_cands equal to mih_search on the same corpus and driver, ids below
      the kth distance, the first 256 rows equal to the oracle; s/batch
      beside mih_search's;
+ 15b. a padded corpus in the same world: phase 4's corpus and 37 uniform
+     codes (N = 1,000,037, which both sharded builds pad with zero codes)
+     under the zero code and codes with 1 to 8 set bits, nearer the pads
+     than any row: sharded_linear_search on both indexes,
+     sharded_mih_search fused and loop, and sharded_compact_search, each
+     equal to the oracle on the unpadded corpus in dists and ids;
  16. the compact sharded engine on the reference's default 100M corpus
      (made on the card) in the same world: build s, peak device memory,
-     memory_stats(), s/batch at k = 10 over 8192 clustered queries, 64
-     rows against the oracle; the scan tier (scan_popcount over the 100M
-     codes at its 128-query tier) timed apart; the save/load round trip
-     at 1M;
+     memory_stats(), s/batch at k = 10 over 8192 clustered queries, 128
+     rows against the oracle; the scan tier timed apart at its 128-query
+     shape over the 100M codes, in one call: the block-min tier as the
+     engines run it and the scan_popcount tier it replaced, both equal to
+     the oracle; the save/load round trip at 1M;
  17. ImageSearchServer(sharded=True) on phase 15's index: 16 client
      threads of search_image_by_id, QPS and p50/p90/p99, every answer's
      dists equal to sharded_mih_search on the same rows (ids below the
@@ -155,8 +162,10 @@ Phases (any failure exits non-zero and prints no result):
 Phases 4 to 20 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
 (phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
-and the sharded engines (phases 15-17) launch no kernel: their scan tier
-is scan_popcount, as the reference's is. The line before the last is a
+and the sharded engines' scan tier and linear fallback (phases 15-17)
+run the block-min scan over each rank's real rows: every blockmin launch
+there on the tensor-core instance, at least one wherever rows went to
+the tier, and no pairwise launch. The line before the last is a
 JSON record of the kernels; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -1120,23 +1129,73 @@ def timed_on(torch, dev, fn):
     return out, time.perf_counter() - t0
 
 
-def sharded_counts(kb, kp, name, seen):
-    """The sharded engines launch neither kernel: their scan tier is
-    scan_popcount, as the reference's (``sharded.py:283``). Adds the two
-    counts read since the last zeroing to ``seen`` and zeroes them."""
+@contextlib.contextmanager
+def scan_tier_rows():
+    """Count the query rows that the sharded engines send to their scan
+    tier and linear fallback (``sharded._device_linear``, under both
+    engines' names for it). Yields a dict whose ``rows``
+    :func:`sharded_counts` reads and zeroes."""
+    from verticut_tpu_torch.search import sharded, sharded_compact
+    tier = {"rows": 0}
+    lock = threading.Lock()
+    scan = sharded._device_linear
+
+    def counted(mesh, codes_loc, queries, *a):
+        with lock:
+            tier["rows"] += queries.shape[0]
+        return scan(mesh, codes_loc, queries, *a)
+
+    with patched((sharded, "_device_linear", counted),
+                 (sharded_compact, "_device_linear", counted)):
+        yield tier
+
+
+def sharded_counts(kb, kp, name, seen, tier):
+    """The sharded engines' scan tier and fallback run the block-min scan
+    over each rank's real rows: every blockmin launch on the tensor-core
+    instance, at least one wherever rows went to the tier, and no
+    pairwise launch. Adds the counts read since the last zeroing (by
+    instance, and the tier's rows) to ``seen`` and zeroes them."""
+    by = dict(kb.launches_by_instance)
     seen["blockmin"] += kb.launches
     seen["pairwise"] += kp.launches
-    check(kb.launches == 0 and kp.launches == 0,
-          f"{name}: the sharded path launched blockmin {kb.launches} / "
-          f"pairwise {kp.launches} times")
+    seen["rows"] += tier["rows"]
+    for k, v in by.items():
+        seen["by_instance"][k] += v
+    check(by["generic"] == 0 and kp.launches == 0,
+          f"{name}: the sharded path launched blockmin {by} / pairwise "
+          f"{kp.launches} times")
+    check(kb.launches > 0 or tier["rows"] == 0,
+          f"{name}: {tier['rows']} rows went to the scan tier and blockmin "
+          f"launched no time")
+    log(f"{name}: blockmin launches {by}, {tier['rows']} rows to the scan "
+        f"tier and fallback, pairwise launches {kp.launches}")
+    zero_sharded(kb, kp, tier)
+
+
+def zero_sharded(kb, kp, tier):
+    """Zero the kernels' launch counts and the scan tier's rows."""
     zero_counts(kb, kp)
+    tier["rows"] = 0
 
 
 def no_launches():
-    return {"blockmin": 0, "pairwise": 0}
+    return {"blockmin": 0, "pairwise": 0, "rows": 0,
+            "by_instance": {"tensor": 0, "generic": 0}}
 
 
-def world_phase(torch, kb, kp, dev, mesh, packed, k10, smi, nq=Q):
+def add_launches(*seen):
+    """The sum of :func:`no_launches` records."""
+    out = no_launches()
+    for s in seen:
+        for k in ("blockmin", "pairwise", "rows"):
+            out[k] += s[k]
+        for k, v in s["by_instance"].items():
+            out["by_instance"][k] += v
+    return out
+
+
+def world_phase(torch, kb, kp, dev, mesh, packed, k10, smi, tier, nq=Q):
     """Phase 15: the inline sharded engine in a world of one. Returns the
     index, its queries and the kernels' launches counted on its paths."""
     from verticut_tpu_torch import bench, bits
@@ -1148,24 +1207,24 @@ def world_phase(torch, kb, kp, dev, mesh, packed, k10, smi, nq=Q):
     cfg = MIHConfig(bits=128, n_tables=4)
     db = bits.as_codes(packed, dev)
     seen = no_launches()
-    zero_counts(kb, kp)
+    zero_sharded(kb, kp, tier)
     sidx, build_s = timed_on(torch, dev,
                              lambda: build_sharded_index(db, cfg, mesh))
-    sharded_counts(kb, kp, "sharded build", seen)
+    sharded_counts(kb, kp, "sharded build", seen, tier)
     index = build_index(db, cfg, device=dev)
     q = bench.perturbed_queries(np.random.default_rng(0), db, nq)
     od, oi = oracle(q[:256], db, k10.knn)
     for fused in (True, False):
         scfg = dataclasses.replace(k10, fused=fused)
         name = f"sharded N={len(packed)} k=10 {'fused' if fused else 'loop'}"
-        zero_counts(kb, kp)
+        zero_sharded(kb, kp, tier)
         sharded_mih_search(sidx, q, scfg)                # warm-up
         times = []
         for _ in range(3):
             res, dt = timed_on(torch, dev,
                                lambda: sharded_mih_search(sidx, q, scfg))
             times.append(dt)
-        sharded_counts(kb, kp, name, seen)
+        sharded_counts(kb, kp, name, seen, tier)
         mih_search(index, q, scfg)
         want, one_s = timed_on(torch, dev,
                                lambda: mih_search(index, q, scfg))
@@ -1184,19 +1243,88 @@ def world_phase(torch, kb, kp, dev, mesh, packed, k10, smi, nq=Q):
             f"ids below the kth distance ({ties} rows with other ids at "
             f"it); 256 rows equal the oracle; radius histogram "
             f"{torch.bincount(res.radius).tolist()}; build "
-            f"{build_s:.3f} s; blockmin/pairwise launches 0; {smi}")
+            f"{build_s:.3f} s; {smi}")
     return sidx, q, seen
 
 
-def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, n=N_SCALE,
-                  nq=Q, n_oracle=N_SCALE_ORACLE):
+def near_pad_queries(dev, seed=15):
+    """The zero code and codes with 1 to 8 set bits: nearer to a sharded
+    build's all-zero pad rows than to any row of a clustered corpus."""
+    from verticut_tpu_torch import bits, codes
+    rng = np.random.default_rng(seed)
+    b = np.zeros((9, 128), np.uint8)
+    for i in range(1, 9):
+        b[i, rng.choice(128, i, replace=False)] = 1
+    return bits.as_codes(codes.pack_bytes(
+        np.packbits(b, axis=1, bitorder="little")), dev)
+
+
+def padded_phase(torch, kb, kp, dev, mesh, packed, k10, smi, tier):
+    """Phase 15b: a corpus that both sharded builds pad in a world of one
+    (phase 4's 1M codes and 37 uniform ones, N = 1,000,037: the inline
+    build pads to a multiple of 200 rows, the compact one to one of 128)
+    under the near-pad queries. sharded_linear_search on either index,
+    sharded_mih_search fused and loop and sharded_compact_search must
+    each equal the oracle on the unpadded corpus in dists and ids.
+    Returns the kernels' launches counted on these paths."""
+    from verticut_tpu_torch import bits, codes
+    from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.search.sharded import (build_sharded_index,
+                                                   sharded_linear_search,
+                                                   sharded_mih_search)
+    from verticut_tpu_torch.search.sharded_compact import (
+        build_sharded_compact, sharded_compact_search)
+    cfg = MIHConfig(bits=128, n_tables=4)
+    db = torch.cat([bits.as_codes(packed, dev),
+                    bits.as_codes(codes.random_codes(37, 37, 128), dev)])
+    n, k = db.shape[0], k10.knn
+    q = near_pad_queries(dev)
+    od, oi = oracle(q, db, k)
+    pad_d = codes.hamming_distance(q, torch.zeros_like(q)).cpu()
+    check(bool((od[:, 0] > pad_d).all()),
+          f"padded: the queries lie no nearer the pads ({pad_d.tolist()}) "
+          f"than the corpus ({od[:, 0].tolist()})")
+    sidx = build_sharded_index(db, cfg, mesh)
+    cidx = build_sharded_compact(db, cfg, mesh)
+    pads = (sidx.codes.shape[0] - n, cidx.codes.shape[0] - n)
+    check(min(pads) > 0, f"padded: the builds pad {pads} rows")
+    seen = no_launches()
+    zero_sharded(kb, kp, tier)
+    runs = (
+        ("sharded_linear_search inline", lambda: sharded_linear_search(
+            mesh, sidx.codes, q, k, n_total=n)),
+        ("sharded_linear_search compact", lambda: sharded_linear_search(
+            mesh, cidx.codes, q, k, n_total=n)),
+        ("sharded_mih_search fused", lambda: sharded_mih_search(sidx, q, k10)),
+        ("sharded_mih_search loop", lambda: sharded_mih_search(
+            sidx, q, dataclasses.replace(k10, fused=False))),
+        ("sharded_compact_search", lambda: sharded_compact_search(
+            cidx, q, k10)),
+    )
+    for name, fn in runs:
+        d, i = fn()[:2]
+        check(torch.equal(d.cpu(), od) and torch.equal(i.cpu(), oi),
+              f"padded N={n} {name}: != the oracle on the unpadded corpus")
+    sharded_counts(kb, kp, f"padded N={n}", seen, tier)
+    log(f"padded N={n} (world of one; inline pads {pads[0]} rows, compact "
+        f"{pads[1]}), {len(q)} near-pad queries at k={k}: "
+        f"{', '.join(name for name, _ in runs)} each equal to the oracle "
+        f"on the unpadded corpus in dists and ids; {smi}")
+    return seen
+
+
+def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, tier, n=N_SCALE,
+                  nq=Q, n_tier=128):
     """Phase 16: the compact sharded engine at the reference's default
-    corpus, the scan tier apart, and the save/load round trip at 1M.
-    Returns the kernels' launches counted on its paths."""
+    corpus, the scan tier apart (the block-min tier beside the
+    scan_popcount tier it replaced, both over the same rows in one call),
+    and the save/load round trip at 1M. Returns the kernels' launches
+    counted on its paths and the two tier times in ms."""
     import shutil
     import tempfile
     from verticut_tpu_torch import bench, bits, codes
     from verticut_tpu_torch.config import MIHConfig
+    from verticut_tpu_torch.ops.hamming import scan_popcount
     from verticut_tpu_torch.search.sharded import _device_linear
     from verticut_tpu_torch.search.sharded_compact import (
         build_sharded_compact, load_sharded_compact, save_sharded_compact,
@@ -1206,7 +1334,7 @@ def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, n=N_SCALE,
         0, n, 128, n_clusters=max(1, n // 200), flip_p=0.02, device=dev)
     q = bench.perturbed_queries(np.random.default_rng(0), corpus, nq)
     seen = no_launches()
-    zero_counts(kb, kp)
+    zero_sharded(kb, kp, tier)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     cidx, build_s = timed_on(torch, dev,
@@ -1225,25 +1353,43 @@ def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, n=N_SCALE,
                            lambda: sharded_compact_search(cidx, q, k10))
         times.append(dt)
     name = f"compact N={n} k=10"
+    sharded_counts(kb, kp, name, seen, tier)
     check_result(torch, name, res, cidx.codes, q, k10.knn)
-    od, oi = oracle(q[:n_oracle], cidx.codes, k10.knn)
-    ties = tie_equal(torch, f"{name} vs the oracle",
-                     SimpleNamespace(dists=res.dists[:n_oracle],
-                                     ids=res.ids[:n_oracle]), od, oi)
+    # the scan tier apart, on the tier's 128-query shape: the block-min
+    # tier as the engine runs it, and the scan_popcount tier it replaced
+    # (its chunk), over the same real rows; both against the oracle
     n_loc = cidx.codes.shape[0]
-    _device_linear(mesh, cidx.codes, q[:128], k10.knn, n_loc, cidx.n)
-    (sd, _), scan_s = timed_on(torch, dev, lambda: _device_linear(
-        mesh, cidx.codes, q[:128], k10.knn, n_loc, cidx.n))
-    check(torch.equal(sd.cpu(), res.dists[:128]),
-          f"{name}: the scan tier disagrees with the search")
-    sharded_counts(kb, kp, name, seen)
+    rows, qt = cidx.codes[:cidx.n], q[:n_tier]
+    od, oi = oracle(qt, rows, k10.knn)
+    _device_linear(mesh, cidx.codes, qt, k10.knn, n_loc, cidx.n)
+    bm_s = []
+    for _ in range(3):
+        (sd, si), dt = timed_on(torch, dev, lambda: _device_linear(
+            mesh, cidx.codes, qt, k10.knn, n_loc, cidx.n))
+        bm_s.append(dt)
+    (pd, pi), pop_s = timed_on(torch, dev, lambda: scan_popcount(
+        qt, rows, k10.knn, chunk=min(65536, n_loc)))
+    for tier_name, d, i in (("block-min", sd, si), ("scan_popcount", pd, pi)):
+        check(torch.equal(d.cpu(), od) and torch.equal(i.cpu(), oi),
+              f"{name}: the {tier_name} scan tier != the oracle")
+    zero_sharded(kb, kp, tier)
+    ties = tie_equal(torch, f"{name} vs the oracle",
+                     SimpleNamespace(dists=res.dists[:n_tier],
+                                     ids=res.ids[:n_tier]), od, oi)
+    bound, by = blockmin_bound(n_tier, cidx.n, cidx.n, 4, 512)
     log(f"{name} (compact sharded), {nq} clustered queries: "
         f"{min(times):.4f} s/batch (runs {', '.join(f'{t:.4f}' for t in times)}"
         f"); radius histogram {torch.bincount(res.radius).tolist()}; "
-        f"{n_oracle} rows equal the oracle in dists, in ids below the kth "
-        f"distance ({ties} rows with other ids at it); the scan tier alone "
-        f"(scan_popcount, 128 queries over {n} codes) {scan_s:.4f} s; "
-        f"blockmin/pairwise launches 0; {smi}")
+        f"{seen['rows']} rows to the scan tier, blockmin launches "
+        f"{seen['by_instance']}; {n_tier} rows equal the oracle in dists, "
+        f"in ids below the kth distance ({ties} rows with other ids at "
+        f"it); the scan tier alone, {n_tier} queries over {cidx.n} codes: "
+        f"block-min {min(bm_s):.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in bm_s)}; its blockmin pass alone "
+        f"is bound by {bound:.4f} ms of {by}), scan_popcount (the tier "
+        f"before) {pop_s:.4f} s, both equal to the oracle; {smi}")
+    tier_ms = {"blockmin": min(bm_s) * 1e3, "popcount": pop_s * 1e3,
+               "bound": bound, "batch_s": min(times)}
     del cidx, res
     gc.collect()
     if dev.type == "cuda":
@@ -1271,15 +1417,16 @@ def compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed, n=N_SCALE,
     ties1 = tie_equal(torch, "compact 1M vs the oracle",
                       SimpleNamespace(dists=a.dists[:256], ids=a.ids[:256]),
                       od, oi)
-    sharded_counts(kb, kp, "compact save/load", seen)
+    sharded_counts(kb, kp, "compact save/load", seen, tier)
     log(f"compact sharded save/load N={len(packed)}: save {save_s:.3f} s, "
         f"load {load_s:.3f} s, arrays and every answer equal; 256 rows "
         f"equal the oracle (dists; ids below the kth distance, {ties1} rows "
         f"with other ids at it)")
-    return seen
+    return seen, tier_ms
 
 
-def sharded_service_phase(torch, kb, kp, sidx, smi, n_req=400, threads=16):
+def sharded_service_phase(torch, kb, kp, sidx, smi, tier, n_req=400,
+                          threads=16):
     """Phase 17: the server's sharded branch over TCP on localhost.
     Returns the kernels' launches counted under its load."""
     from verticut_tpu_torch.config import SearchConfig
@@ -1295,14 +1442,14 @@ def sharded_service_phase(torch, kb, kp, sidx, smi, n_req=400, threads=16):
         cli = ImageSearchClient(port=srv.port, pool=threads, timeout=300)
         ids = np.random.default_rng(17).integers(0, sidx.n, n_req).tolist()
         run_load(cli, ids[:2 * threads], k, threads)
-        zero_counts(kb, kp)
+        zero_sharded(kb, kp, tier)
         dt, lats, served = run_load(cli, ids, k, threads)
         st = cli.stats()
         cli.close()
     finally:
         srv.stop()
     seen = no_launches()
-    sharded_counts(kb, kp, "sharded service", seen)
+    sharded_counts(kb, kp, "sharded service", seen, tier)
     qids = sorted(set(ids))
     q = sidx.codes[torch.tensor(qids, device=sidx.device)]
     want = sharded_mih_search(sidx, q, SearchConfig(knn=k))
@@ -1314,8 +1461,7 @@ def sharded_service_phase(torch, kb, kp, sidx, smi, n_req=400, threads=16):
         f"p50/p90/p99 {pcts(lats)} ms; prewarm {prewarm_s:.2f} s; "
         f"{st['n_requests']} rows in {st['n_batches']} batches; every answer "
         f"equal to sharded_mih_search in dists, in ids below the kth "
-        f"distance ({ties} rows with other ids at it); blockmin/pairwise "
-        f"launches 0; {smi}")
+        f"distance ({ties} rows with other ids at it); {smi}")
     return seen
 
 
@@ -2050,16 +2196,23 @@ def main() -> int:
           f"the world runs {dist.get_backend()} over "
           f"{dist.get_world_size()} ranks, not NCCL over one")
     log(f"world of one: backend {dist.get_backend()}, device {mesh.device}")
-    sidx, _, world_seen = world_phase(torch, kb, kp, dev, mesh, packed, k10,
-                                      smi)
-    service_seen = sharded_service_phase(torch, kb, kp, sidx, smi)
-    del sidx
-    gc.collect()
-    torch.cuda.empty_cache()
-    compact_seen = compact_phase(torch, kb, kp, dev, mesh, k10, smi, packed)
+    with scan_tier_rows() as tier:
+        sidx, _, world_seen = world_phase(torch, kb, kp, dev, mesh, packed,
+                                          k10, smi, tier)
+        padded_seen = padded_phase(torch, kb, kp, dev, mesh, packed, k10, smi,
+                                   tier)
+        service_seen = sharded_service_phase(torch, kb, kp, sidx, smi, tier)
+        del sidx
+        gc.collect()
+        torch.cuda.empty_cache()
+        compact_seen, tier_ms = compact_phase(torch, kb, kp, dev, mesh, k10,
+                                              smi, packed, tier)
     close_world()
-    sharded_launches = {k: world_seen[k] + service_seen[k] + compact_seen[k]
-                        for k in ("blockmin", "pairwise")}
+    sharded_launches = add_launches(world_seen, padded_seen, service_seen,
+                                    compact_seen)
+    log(f"phases 15-17 launches: {sharded_launches}")
+    check(sharded_launches["by_instance"]["tensor"] > 0,
+          "phases 15-17 launched no tensor-core blockmin kernel")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2096,6 +2249,12 @@ def main() -> int:
          "launches_1b_by_instance": billion_by_instance,
          "encoder_phase_launches": encoder_launches,
          "sharded_launches": sharded_launches["blockmin"],
+         "sharded_launches_by_instance": sharded_launches["by_instance"],
+         "sharded_scan_tier_rows": sharded_launches["rows"],
+         "sharded_100m_scan_tier_ms": tier_ms["blockmin"],
+         "sharded_100m_popcount_tier_ms": tier_ms["popcount"],
+         "sharded_100m_tier_blockmin_bound_ms": tier_ms["bound"],
+         "sharded_100m_batch_s": tier_ms["batch_s"],
          "tools_phase_launches": tools_launches["blockmin"],
          "tools_phase_launches_by_instance": tools_launches["by_instance"],
          "perf_sweep_launches": kv_launches["blockmin"],

@@ -317,6 +317,93 @@ def run_compact_scale(rank):
 
 
 # --------------------------------------------------------------------------
+# Padded corpora on both sharded engines (tests/test_torch_sharded_pad.py)
+# --------------------------------------------------------------------------
+
+#: (name, mesh, engine, n, k). The inline build pads the corpus to a
+#: multiple of n_shards * 200 rows, the compact build to one of 128 rows
+#: per rank: no n here is a multiple. inline_100_421: 50 rows per rank,
+#: ranks 0-1 real (fewer than k), 2-7 all pads; compact_1100_421: 256 rows
+#: per rank, rank 4 holds 76 real rows, ranks 5-7 none.
+PAD_CASES = [
+    (f"{engine}_{n}_{''.join(map(str, shape))}", shape, engine, n, 10)
+    for engine in ("inline", "compact") for shape in ((1, 2, 1), (4, 2, 1))
+    for n in (1000, 1001)
+] + [
+    ("inline_100_421", (4, 2, 1), "inline", 100, 64),
+    ("compact_1100_421", (4, 2, 1), "compact", 1100, 100),
+]
+
+#: the entry points each padded case runs
+PAD_ENTRIES = ("linear", "fused", "loop")
+
+
+def pad_db(n):
+    """``n`` uniform codes and 16 queries near the all-zero pad rows: the
+    zero code, codes with 1 to 8 set bits, and 7 corpus rows."""
+    db = make_db(n, seed=0)
+    rng = np.random.default_rng(n)
+    bits = np.zeros((16, 128), np.uint8)
+    for b in range(1, 9):
+        bits[b, rng.choice(128, b, replace=False)] = 1
+    q = codes.pack_bytes(np.packbits(bits, axis=1, bitorder="little"))
+    q[9:] = db[np.linspace(0, n - 1, 7).astype(int)]
+    return db, q
+
+
+def run_pad(rank):
+    """Every padded case through ``sharded_linear_search`` and the
+    engine's search under both drivers, in one world of 8."""
+    from verticut_tpu_torch.search.sharded import (build_sharded_index,
+                                                   sharded_linear_search,
+                                                   sharded_mih_search)
+    from verticut_tpu_torch.search.sharded_compact import (
+        build_sharded_compact, sharded_compact_search)
+    out = {}
+    for name, shape, engine, n, k in PAD_CASES:
+        mesh = make_mesh(*shape)
+        if not mesh.member:
+            out[name] = None
+            continue
+        db, q = pad_db(n)
+        if engine == "inline":
+            idx = build_sharded_index(db, CFG4, mesh)
+            search = sharded_mih_search
+        else:
+            idx = build_sharded_compact(db, CFG4, mesh)
+            search = sharded_compact_search
+        d, i = sharded_linear_search(mesh, idx.codes, q, k, n_total=idx.n)
+        out[name] = {"linear": {"dists": d.numpy(), "ids": i.numpy()}}
+        for entry, fused in (("fused", True), ("loop", False)):
+            out[name][entry] = as_np(search(idx, q, SearchConfig(
+                knn=k, fused=fused)))
+    out["server"] = _pad_server(rank)
+    return out
+
+
+def _pad_server(rank):
+    """The sharded server on rank 0 of a (4, 2, 1) mesh over the padded
+    corpus of 1001 codes, the other ranks following: rank 0 returns the
+    ``search_batch`` answer to the 16 near-pad queries at k = 10."""
+    from verticut_tpu_torch.search.sharded import build_sharded_index
+    from verticut_tpu_torch.service import (ImageSearchClient,
+                                            ImageSearchServer, follow)
+    db, q = pad_db(1001)
+    idx = build_sharded_index(db, CFG4, make_mesh(4, 2, 1))
+    if rank:
+        follow(idx)
+        return None
+    srv = ImageSearchServer(idx, port=0, sharded=True).start()
+    try:
+        cli = ImageSearchClient(port=srv.port, timeout=60)
+        got = cli.search_batch(codes.unpack_to_bytes(q).tobytes(), 10)
+        cli.close()
+    finally:
+        srv.stop()
+    return got
+
+
+# --------------------------------------------------------------------------
 # The sharded server (tests/test_torch_sharded_service.py)
 # --------------------------------------------------------------------------
 

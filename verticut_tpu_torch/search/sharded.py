@@ -49,12 +49,15 @@ kth distance may differ from the reference's; dists and stats do not.
 
 Two drivers share the step, as in the reference: the fused pipeline
 (``scfg.fused``, the default) and the per-radius loop (``fused=False``).
-The scan tier and the linear fallback are :func:`_device_linear`, the
-reference's ``scan_popcount`` over each rank's row slice; the blockmin
-kernel is not on these paths. Where the reference's fallback scans the
-whole batch and keeps the unfinished rows, the port scans only those rows
-(padded to the query axis): the scan is exact per row, so the answers are
-the same.
+The scan tier and the linear fallback are :func:`_device_linear`: each
+rank runs the block-min scan (``linear_search(method="blockmin")``, the
+blockmin kernel on a GPU) over the real rows of its slice only. The
+reference scans the whole slice with ``scan_popcount`` and masks the
+padding rows after its top k, so a zero pad near the query can take a
+real row's slot (ROADMAP.md Queue 3); the port never makes a pad a
+candidate. Where the reference's fallback scans the whole batch and keeps
+the unfinished rows, the port scans only those rows (padded to the query
+axis): the scan is exact per row, so the answers are the same.
 """
 
 from __future__ import annotations
@@ -72,9 +75,9 @@ from verticut_tpu_torch.index.mih import (entry_block_size, entry_row_align,
                                           make_entry_rows, sort_table)
 from verticut_tpu_torch.ops import chunks as chunks_lib
 from verticut_tpu_torch.ops import enumeration, topk
-from verticut_tpu_torch.ops.hamming import scan_popcount
 from verticut_tpu_torch.parallel import collectives
 from verticut_tpu_torch.parallel.mesh import Mesh
+from verticut_tpu_torch.search.linear import linear_search
 from verticut_tpu_torch.search.single import (
     OVERFLOW_SCAN_MAX_N, SCAN_DOMINANCE_MIN_NQ, SearchResult, SearchState,
     _cap_for_radius, _flip_masks, _radius_schedule, _stage_shift,
@@ -286,17 +289,16 @@ def sharded_radius_step(mesh: Mesh, entry_rows, se, queries, q_subs, masks,
 def _device_linear(mesh: Mesh, codes_loc, queries, k: int, n_loc: int,
                    n_total: int):
     """Exact top-k of ``queries`` over the plane's row slices: each rank
-    scans its own slice (``scan_popcount``, as the reference's), the
-    per-rank top-k all-gather over the plane and the ``(dist, id)``
-    smallest k of them are kept, the same on every rank of the plane."""
+    runs the block-min scan over the real rows of its slice (ids below
+    ``n_total``; a rank with fewer than k hands in INF / -1 for the rest,
+    one with none launches nothing), the per-rank top-k all-gather over
+    the plane and the ``(dist, id)`` smallest k of them are kept, the same
+    on every rank of the plane."""
     base = mesh.model_index * n_loc
-    d, i = scan_popcount(queries, codes_loc, k,
-                         chunk=min(65536, max(8, n_loc)))
-    ig = i + base
-    ok = (i >= 0) & (ig < n_total)  # mask the padding rows
+    r = min(max(n_total - base, 0), n_loc)
+    d, i = linear_search(queries, codes_loc[:r], k, method="blockmin")
     gd, gi = collectives.gather_candidates(
-        torch.where(ok, d, topk.INF_DIST), torch.where(ok, ig, -1),
-        mesh.model_group)
+        d, torch.where(i >= 0, i + base, -1), mesh.model_group)
     return topk.table_topk_pos(gd, gi, k)
 
 
