@@ -1,0 +1,10 @@
+"""batch_p95_ms: the 95th percentile, over every batch finalized inside
+the window, of the milliseconds from its ``mih_search_dispatch`` call to
+the return of its ``mih_search_finalize`` (host clock)."""
+
+import numpy as np
+
+
+def read(run):
+    lat = run.window.latencies
+    return float(np.percentile(lat, 95) * 1e3) if lat else None
