@@ -1,5 +1,5 @@
 """What the port's dispatch workers share across threads: the kernels'
-launch counts and the native-library build. Each is driven from more
+launch counts, the search path's counters and the native-library build. Each is driven from more
 threads than this machine has cores, with a short switch interval, and
 checked for a lost update or a second build."""
 
@@ -79,3 +79,12 @@ def test_concurrent_first_loads_build_once(monkeypatch, tmp_path):
     assert len(builds) == 1
     assert len(libs) == THREADS and all(lib is libs[0] for lib in libs)
     assert os.listdir(tmp_path) == ["libvt_hashdir.so"]
+
+
+def test_counters_lose_no_update():
+    """The dispatch worker and its callers add to one counter table."""
+    from verticut_tpu_torch.utils import timer
+    before = timer.counters()
+    _hammer(lambda: timer.count("test.threads.hammer", 3), 2000)
+    assert (timer.counters(since=before)["test.threads.hammer"]
+            == 3 * THREADS * 2000)

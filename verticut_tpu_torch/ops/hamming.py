@@ -30,6 +30,7 @@ from verticut_tpu_torch.codes import (hamming_distance, hamming_via_matmul,
 from verticut_tpu_torch.ops import topk
 from verticut_tpu_torch.ops.topk import (INF_DIST, INVALID_ID, SCAN_SENTINEL,
                                          select_asc)
+from verticut_tpu_torch.utils.timer import span
 
 #: cap on elements per slab: block-min keys of a query slice in pass 1,
 #: gathered code words in the rescore, a [Q, chunk] distance slab
@@ -144,11 +145,14 @@ def scan_blockmin(queries: torch.Tensor, db: torch.Tensor, k: int,
     if n == 0 or q == 0:
         return _decode(torch.empty((q, 0), dtype=torch.int64,
                                    device=queries.device), k)
-    bidx = select_blocks(queries, db, k, block, which)
+    with span("scan.select"):
+        bidx = select_blocks(queries, db, k, block, which)
     kb = bidx.shape[1]
     qs = max(1, SLICE_ELEMS // (kb * block * w))
-    parts = [_rescore_blocks(queries[q0:q0 + qs], db, n, bidx[q0:q0 + qs],
-                             k, block) for q0 in range(0, q, qs)]
+    with span("scan.rescore"):
+        parts = [_rescore_blocks(queries[q0:q0 + qs], db, n,
+                                 bidx[q0:q0 + qs], k, block)
+                 for q0 in range(0, q, qs)]
     return (torch.cat([d for d, _ in parts]),
             torch.cat([i for _, i in parts]))
 

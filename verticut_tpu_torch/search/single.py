@@ -47,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, NamedTuple, Optional
 
@@ -62,6 +63,7 @@ from verticut_tpu_torch.ops import chunks as chunks_lib
 from verticut_tpu_torch.ops import enumeration, topk
 from verticut_tpu_torch.ops.hamming import scan_blockmin
 from verticut_tpu_torch.search import linear as linear_lib
+from verticut_tpu_torch.utils.timer import count, held_counts, span
 
 # Fetch-block size of the schedule's cost model (the reference's RANGE_BLK:
 # 25-entry inline rows and 32-id compact rows both fit under it).
@@ -153,21 +155,23 @@ def _table_candidates(table: MIHTable, codes: Optional[torch.Tensor],
     each slot's id and code are gathered (the code from ``entry_codes``,
     else from ``codes`` at the id) and scored. Returns ``(cand_dist [Q,
     cap], cand_id [Q, cap], total, n_probe, n_nonempty)``."""
-    probes = q_sub[:, None] ^ masks[None, :]                       # [Q, C]
-    starts, counts = table.directory.lookup(probes)
-    if use_bitmap and table.bitmap is not None:
-        counts = torch.where(table.bitmap.get(probes), counts, 0)
-    counts = torch.where(done[:, None], 0, counts)
-    n_probe = torch.where(done, 0, probes.shape[1]).to(torch.int32)
-    n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
-    entry, valid, total = expand_buckets(starts, counts, cap)
-    entry_c = entry.clamp(0, table.entry_ids.shape[0] - 1).long()
-    cand_id = table.entry_ids[entry_c]                             # [Q, cap]
-    if table.entry_codes is not None:
-        cand_codes = table.entry_codes[entry_c]                 # [Q, cap, W]
-    else:
-        cand_codes = codes[cand_id.clamp(0, codes.shape[0] - 1).long()]
-    dist = hamming_distance(cand_codes, queries[:, None, :])
+    with span("mih.lookup"):
+        probes = q_sub[:, None] ^ masks[None, :]                   # [Q, C]
+        starts, counts = table.directory.lookup(probes)
+        if use_bitmap and table.bitmap is not None:
+            counts = torch.where(table.bitmap.get(probes), counts, 0)
+        counts = torch.where(done[:, None], 0, counts)
+        n_probe = torch.where(done, 0, probes.shape[1]).to(torch.int32)
+        n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
+        entry, valid, total = expand_buckets(starts, counts, cap)
+    with span("mih.fetch_score"):
+        entry_c = entry.clamp(0, table.entry_ids.shape[0] - 1).long()
+        cand_id = table.entry_ids[entry_c]                         # [Q, cap]
+        if table.entry_codes is not None:
+            cand_codes = table.entry_codes[entry_c]             # [Q, cap, W]
+        else:
+            cand_codes = codes[cand_id.clamp(0, codes.shape[0] - 1).long()]
+        dist = hamming_distance(cand_codes, queries[:, None, :])
     return (torch.where(valid, dist, topk.INF_DIST),
             torch.where(valid, cand_id, topk.INVALID_ID), total, n_probe,
             n_nonempty)
@@ -186,20 +190,23 @@ def _table_candidates_range(table: MIHTable, codes: Optional[torch.Tensor],
     compact = table.entry_rows is None
     rows = table.entry_idrows if compact else table.entry_rows
     chb = max(4, cap // blk)
-    pref = shr(q_sub, s_bits - d.pbits)[:, None] ^ pmasks[None, :]  # [Q, H]
-    starts, counts = d.range_lookup(pref)
-    active = ~done
-    counts = torch.where(active[:, None], counts, 0)
-    n_probe = torch.where(active, pref.shape[1], 0).to(torch.int32)
-    n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
-    blk_id, lo, hi, _nch, overflow = chunks_lib.chunk_descriptors(
-        starts, counts, blk=blk, chb=chb, n_blocks=rows.shape[0])
-    if compact:
-        dist, cand_id = chunks_lib.fetch_score_idrows(
-            rows, codes, blk_id, lo, hi, queries)
-    else:
-        dist, cand_id = chunks_lib.fetch_score_blocks(
-            rows, blk_id, lo, hi, queries, blk=blk)
+    with span("mih.lookup"):
+        pref = (shr(q_sub, s_bits - d.pbits)[:, None]
+                ^ pmasks[None, :])                                 # [Q, H]
+        starts, counts = d.range_lookup(pref)
+        active = ~done
+        counts = torch.where(active[:, None], counts, 0)
+        n_probe = torch.where(active, pref.shape[1], 0).to(torch.int32)
+        n_nonempty = (counts > 0).sum(dim=-1, dtype=torch.int32)
+        blk_id, lo, hi, _nch, overflow = chunks_lib.chunk_descriptors(
+            starts, counts, blk=blk, chb=chb, n_blocks=rows.shape[0])
+    with span("mih.fetch_score"):
+        if compact:
+            dist, cand_id = chunks_lib.fetch_score_idrows(
+                rows, codes, blk_id, lo, hi, queries)
+        else:
+            dist, cand_id = chunks_lib.fetch_score_blocks(
+                rows, blk_id, lo, hi, queries, blk=blk)
     n_scored = (hi - lo).sum(dim=-1, dtype=torch.int32)
     return dist, cand_id, n_scored, overflow, n_probe, n_nonempty
 
@@ -222,7 +229,9 @@ def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
     ``codes`` (the index's id-ordered codes) feed the candidate codes of
     compact range tables and of bucket tables without ``entry_codes``.
     Range tables overflow when a query needs more chunks than the budget,
-    bucket tables when its buckets hold more than ``cap`` entries."""
+    bucket tables when its buckets hold more than ``cap`` entries. Spans:
+    ``mih.lookup``, ``mih.fetch_score`` and ``mih.strip`` for each table,
+    ``mih.merge`` for the merge and the stop rule."""
     w = queries.shape[-1]
     p = state.pool_dist.shape[-1]
     max_id = max(t.n_entries(w) for t in tables)
@@ -242,28 +251,31 @@ def radius_step(tables, queries: torch.Tensor, q_subs: torch.Tensor,
                 tables[t], codes, queries, q_subs[:, t], masks, state.done,
                 cap, use_bitmap)
             ovf = tot > cap
-        strips.append(topk.table_topk_chunkmin_packed(d, i, p, blk) if packed
-                      else topk.table_topk_chunkmin_pos(d, i, p, blk))
+        with span("mih.strip"):
+            strip = (topk.table_topk_chunkmin_packed if packed
+                     else topk.table_topk_chunkmin_pos)
+            strips.append(strip(d, i, p, blk))
         del d, i
         overflow = overflow | ovf
         total_c = total_c + torch.clamp(tot, max=cap)
         n_probes = n_probes + npb
         n_nonempty = n_nonempty + nne
-    if packed:
-        pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
-                                          torch.cat(strips, dim=-1),
-                                          n_copies=n_tables + 1)
-    else:
-        sd, si = zip(*strips)
-        pd, pi = topk.merge_strips_dedup_pos(
-            state.pool_dist, state.pool_id, torch.cat(sd, dim=-1),
-            torch.cat(si, dim=-1))
-    if approximate:
-        newly_done = pi[:, -1] >= 0
-    else:
-        full, kth = topk.kth_stats(pd, pi, knn)
-        newly_done = full & (kth <= (radius + 1) * n_tables)
-    newly_done = newly_done | (radius >= s_bits)
+    with span("mih.merge"):
+        if packed:
+            pd, pi = topk.merge_strips_packed(state.pool_dist, state.pool_id,
+                                              torch.cat(strips, dim=-1),
+                                              n_copies=n_tables + 1)
+        else:
+            sd, si = zip(*strips)
+            pd, pi = topk.merge_strips_dedup_pos(
+                state.pool_dist, state.pool_id, torch.cat(sd, dim=-1),
+                torch.cat(si, dim=-1))
+        if approximate:
+            newly_done = pi[:, -1] >= 0
+        else:
+            full, kth = topk.kth_stats(pd, pi, knn)
+            newly_done = full & (kth <= (radius + 1) * n_tables)
+        newly_done = newly_done | (radius >= s_bits)
     return SearchState(pool_dist=pd, pool_id=pi, done=state.done | newly_done,
                        radius=torch.where(state.done, state.radius, radius),
                        overflow=overflow, n_probes=n_probes,
@@ -366,7 +378,16 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
     when at least that many queries are still active after it.
     ``overflow_to_scan`` sends overflowed-but-finished rows to the scan
     ladder with the stragglers (one ladder, not two); the caller then
-    passes no retry caps."""
+    passes no retry caps.
+
+    Spans (:func:`~verticut_tpu_torch.utils.timer.span`): ``mih.step.r<r>``
+    around each radius step, ``mih.gate`` around each host read that
+    decides a branch, ``mih.compact``, ``mih.retry`` and ``mih.scan``
+    around the compaction and the two ladders. Counters: the rows of each
+    stage (``mih.stage_rows.r<r>``), ``mih.stages_skipped``,
+    ``mih.dominance_trips``, and the rows flagged for and run by each
+    ladder (``mih.retry_rows``, ``mih.retry_budget_rows``,
+    ``mih.scan_rows``, ``mih.scan_budget_rows``)."""
     nq = queries.shape[0]
     dev = queries.device
 
@@ -377,101 +398,121 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
         cur_q, cur_qs, cur_state = queries_b, q_subs_b, state_b
         dom = False
         for i, (r, _group) in enumerate(schedule):
-            skip = bool(cur_state.done.all())
+            with span("mih.gate"):
+                skip = bool(cur_state.done.all())
             if i > 0 and dominance:
                 skip = skip or dom
-            if not skip:
-                cur_state = step_fn(i, r, stage_caps[i], cur_q, cur_qs,
-                                    cur_state)
-                full = SearchState(*(f.index_copy(0, orig, c)
-                                     for f, c in zip(full, cur_state)))
+            if skip:
+                count("mih.stages_skipped")
+            else:
+                count(f"mih.stage_rows.r{r}", cur_q.shape[0])
+                with span(f"mih.step.r{r}"):
+                    cur_state = step_fn(i, r, stage_caps[i], cur_q, cur_qs,
+                                        cur_state)
+                    full = SearchState(*(f.index_copy(0, orig, c)
+                                         for f, c in zip(full, cur_state)))
             if i == 0 and dominance:
                 # decided once, on the full batch, before any compaction
-                dom = int((~cur_state.done).sum()) >= dominance
+                with span("mih.gate"):
+                    dom = int((~cur_state.done).sum()) >= dominance
+                if dom:
+                    count("mih.dominance_trips")
             if i + 1 < len(schedule):
                 nb = stage_batch_caps[i + 1]
                 if nb < cur_q.shape[0]:
                     # stable: active rows first, each group in row order;
                     # actives past the budget stay undone in `full` and
                     # are resolved by the scan ladder or the fallbacks
-                    perm = torch.argsort(cur_state.done.to(torch.int32),
-                                         stable=True)
-                    sel = perm[:nb]
-                    cur_q, cur_qs = cur_q[sel], cur_qs[sel]
-                    cur_state = _take(cur_state, sel)
-                    orig = orig[sel]
+                    with span("mih.compact"):
+                        perm = torch.argsort(cur_state.done.to(torch.int32),
+                                             stable=True)
+                        sel = perm[:nb]
+                        cur_q, cur_qs = cur_q[sel], cur_qs[sel]
+                        cur_state = _take(cur_state, sel)
+                        orig = orig[sel]
         return full
 
     full = staged(queries, q_subs, state0, caps, batch_caps,
                   dominance=scan_dominance if scan_budget else 0)
 
     if retry_caps:
-        # re-run overflowed-but-finished rows from radius 0 at the retry
-        # caps: a small tier for the usual handful, the full budget only
-        # when the small one is outgrown (exclusive gates on one count)
-        flag = full.overflow & full.done
-        n_f = int(flag.sum())
-        perm = torch.argsort((~flag).to(torch.int32), stable=True)
-        small = min(retry_budget, max(64, nq // 16))
-        budgets = [small] + ([retry_budget] if retry_budget > small else [])
-        for bi, budget in enumerate(budgets):
-            run = n_f > (0 if bi == 0 else budgets[bi - 1])
-            if bi + 1 < len(budgets):
-                run = run and n_f <= budget
-            if not run:
-                continue
-            sel = perm[:budget]
-            # the reference sizes these without n (its _stage_shift(knn))
-            retry_bc = tuple(
-                budget if i == 0
-                else max(64, budget >> (_stage_shift(knn) + 2 * (i - 1)))
-                for i in range(len(schedule)))
-            flag_sel = flag[sel]
-            rstate = init_state(budget, pool_size, dev)._replace(
-                done=~flag_sel)
-            rfull = staged(queries[sel], q_subs[sel], rstate, retry_caps,
-                           retry_bc)
-            # pools and flags from the re-run; the read-amplification
-            # stats keep the first run's counts
-            full = full._replace(**{
-                f: _blend(getattr(full, f), sel, flag_sel, getattr(rfull, f))
-                for f in ("pool_dist", "pool_id", "done", "radius",
-                          "overflow")})
+        with span("mih.retry"):
+            # re-run overflowed-but-finished rows from radius 0 at the
+            # retry caps: a small tier for the usual handful, the full
+            # budget only when the small one is outgrown (exclusive gates
+            # on one count)
+            flag = full.overflow & full.done
+            n_f = int(flag.sum())
+            count("mih.retry_rows", n_f)
+            perm = torch.argsort((~flag).to(torch.int32), stable=True)
+            small = min(retry_budget, max(64, nq // 16))
+            budgets = [small] + ([retry_budget] if retry_budget > small
+                                 else [])
+            for bi, budget in enumerate(budgets):
+                run = n_f > (0 if bi == 0 else budgets[bi - 1])
+                if bi + 1 < len(budgets):
+                    run = run and n_f <= budget
+                if not run:
+                    continue
+                count("mih.retry_budget_rows", budget)
+                sel = perm[:budget]
+                # the reference sizes these without n (its
+                # _stage_shift(knn))
+                retry_bc = tuple(
+                    budget if i == 0
+                    else max(64, budget >> (_stage_shift(knn) + 2 * (i - 1)))
+                    for i in range(len(schedule)))
+                flag_sel = flag[sel]
+                rstate = init_state(budget, pool_size, dev)._replace(
+                    done=~flag_sel)
+                rfull = staged(queries[sel], q_subs[sel], rstate,
+                               retry_caps, retry_bc)
+                # pools and flags from the re-run; the read-amplification
+                # stats keep the first run's counts
+                full = full._replace(**{
+                    f: _blend(getattr(full, f), sel, flag_sel,
+                              getattr(rfull, f))
+                    for f in ("pool_dist", "pool_id", "done", "radius",
+                              "overflow")})
 
     if scan_budget and scan_fn is not None:
-        # tiered scan of the unfinished rows: exactly the first tier whose
-        # budget covers the straggler count runs
-        flag = ~full.done
-        if overflow_to_scan:
-            # the scan is exact, so it supersedes any clipped pool; the
-            # blend below marks these rows done and clears their overflow
-            flag = flag | full.overflow
-        n_sc = int(flag.sum())
-        perm = torch.argsort((~flag).to(torch.int32), stable=True)
-        budgets = [min(scan_budget, nq)]
-        while budgets[-1] < nq:
-            budgets.append(min(nq, budgets[-1] * 8))
-        for bi, budget in enumerate(budgets):
-            run = n_sc > (0 if bi == 0 else budgets[bi - 1])
-            if budget < nq:
-                run = run and n_sc <= budget
-            if not run:
-                continue
-            sel = perm[:budget]
-            flag_sel = flag[sel]
-            d, i = scan_fn(queries[sel])
-            if pool_size > knn:
-                d = torch.nn.functional.pad(d, (0, pool_size - knn),
-                                            value=topk.INF_DIST)
-                i = torch.nn.functional.pad(i, (0, pool_size - knn),
-                                            value=topk.INVALID_ID)
-            full = full._replace(
-                pool_dist=_blend(full.pool_dist, sel, flag_sel, d),
-                pool_id=_blend(full.pool_id, sel, flag_sel, i),
-                done=_blend(full.done, sel, flag_sel,
-                            torch.ones_like(flag_sel)),
-                overflow=_blend(full.overflow, sel, flag_sel,
-                                torch.zeros_like(flag_sel)))
+        with span("mih.scan"):
+            # tiered scan of the unfinished rows: exactly the first tier
+            # whose budget covers the straggler count runs
+            flag = ~full.done
+            if overflow_to_scan:
+                # the scan is exact, so it supersedes any clipped pool; the
+                # blend below marks these rows done and clears their
+                # overflow
+                flag = flag | full.overflow
+            n_sc = int(flag.sum())
+            count("mih.scan_rows", n_sc)
+            perm = torch.argsort((~flag).to(torch.int32), stable=True)
+            budgets = [min(scan_budget, nq)]
+            while budgets[-1] < nq:
+                budgets.append(min(nq, budgets[-1] * 8))
+            for bi, budget in enumerate(budgets):
+                run = n_sc > (0 if bi == 0 else budgets[bi - 1])
+                if budget < nq:
+                    run = run and n_sc <= budget
+                if not run:
+                    continue
+                count("mih.scan_budget_rows", budget)
+                sel = perm[:budget]
+                flag_sel = flag[sel]
+                d, i = scan_fn(queries[sel])
+                if pool_size > knn:
+                    d = torch.nn.functional.pad(d, (0, pool_size - knn),
+                                                value=topk.INF_DIST)
+                    i = torch.nn.functional.pad(i, (0, pool_size - knn),
+                                                value=topk.INVALID_ID)
+                full = full._replace(
+                    pool_dist=_blend(full.pool_dist, sel, flag_sel, d),
+                    pool_id=_blend(full.pool_id, sel, flag_sel, i),
+                    done=_blend(full.done, sel, flag_sel,
+                                torch.ones_like(flag_sel)),
+                    overflow=_blend(full.overflow, sel, flag_sel,
+                                    torch.zeros_like(flag_sel)))
     return full
 
 
@@ -594,30 +635,47 @@ def _pool(device: torch.device) -> ThreadPoolExecutor:
 
 def _fused_worker(index: MIHIndex, queries: torch.Tensor,
                   scfg: SearchConfig, _cap: Optional[int], schedule,
-                  ready: Optional["torch.cuda.Event"], n_threads: int):
+                  ready: Optional["torch.cuda.Event"], n_threads: int,
+                  submitted: float):
     """The fused pipeline on the device's worker thread: ``(packed, host,
     event)``. On CUDA it runs on the worker's own stream, behind ``ready``
     (recorded on the caller's stream once the queries were there), and
     starts the row's copy into pinned host memory with an event behind
-    it; on the CPU it takes the caller's intra-op thread count."""
+    it; on the CPU it takes the caller's intra-op thread count. The
+    whole of it is the span ``mih.pipeline``. Its counts are added at its
+    end, all at once; a client's batch adds ``mih.batches``,
+    ``mih.queries`` and ``mih.queue_wait_us`` (from ``submitted``, the
+    dispatch's ``time.perf_counter()``), a fallback re-run (which passes
+    its raised ``_cap``) only the work it ran."""
+    batch = _cap is None
     dev = index.device
-    if ready is None:
-        if torch.get_num_threads() != n_threads:
-            torch.set_num_threads(n_threads)
-        packed = _fused_row(index, queries, scfg, _cap, schedule)
-        return packed, packed, None
-    if dev not in _streams:
-        _streams[dev] = torch.cuda.Stream(dev)
-    s = _streams[dev]
-    with torch.cuda.device(dev), torch.cuda.stream(s):
-        s.wait_event(ready)
-        # the caller's allocation: keep it from reuse until s is past it
-        queries.record_stream(s)
-        packed = _fused_row(index, queries, scfg, _cap, schedule)
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(s)
+    with held_counts(), span("mih.pipeline"):
+        if batch:
+            count("mih.queue_wait_us",
+                  int((time.perf_counter() - submitted) * 1e6))
+        if ready is None:
+            if torch.get_num_threads() != n_threads:
+                torch.set_num_threads(n_threads)
+            packed = _fused_row(index, queries, scfg, _cap, schedule)
+            host, event = packed, None
+        else:
+            if dev not in _streams:
+                _streams[dev] = torch.cuda.Stream(dev)
+            s = _streams[dev]
+            with torch.cuda.device(dev), torch.cuda.stream(s):
+                s.wait_event(ready)
+                # the caller's allocation: keep it from reuse until s is
+                # past it
+                queries.record_stream(s)
+                packed = _fused_row(index, queries, scfg, _cap, schedule)
+                host = torch.empty(packed.shape, dtype=packed.dtype,
+                                   pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(s)
+        if batch:
+            count("mih.batches")
+            count("mih.queries", queries.shape[0])
     return packed, host, event
 
 
@@ -701,18 +759,19 @@ def mih_search_dispatch(index: MIHIndex, queries,
     finalized in any order."""
     if not scfg.fused:
         return None
-    scfg, queries, schedule = _prepare(index, queries, scfg)
-    schedule = fused_stages(index, scfg, schedule)
-    if not schedule:
-        return None
-    ready = None
-    if index.device.type == "cuda":
-        with torch.cuda.device(index.device):
-            ready = torch.cuda.Event()
-            ready.record()
-    future = _pool(index.device).submit(
-        _fused_worker, index, queries, scfg, _cap, schedule, ready,
-        torch.get_num_threads())
+    with span("mih.dispatch"):
+        scfg, queries, schedule = _prepare(index, queries, scfg)
+        schedule = fused_stages(index, scfg, schedule)
+        if not schedule:
+            return None
+        ready = None
+        if index.device.type == "cuda":
+            with torch.cuda.device(index.device):
+                ready = torch.cuda.Event()
+                ready.record()
+        future = _pool(index.device).submit(
+            _fused_worker, index, queries, scfg, _cap, schedule, ready,
+            torch.get_num_threads(), time.perf_counter())
     return FusedHandle(future=future, queries=queries, index=index,
                        scfg=scfg, cap=_cap)
 
@@ -720,13 +779,14 @@ def mih_search_dispatch(index: MIHIndex, queries,
 def mih_search_finalize(h: FusedHandle) -> SearchResult:
     """Join a dispatched search's worker (re-raising its exception), wait
     for its row to reach the host, decode it and apply the fallbacks."""
-    _, host, event = h.future.result()
-    if event is not None:
-        event.synchronize()
-    row = _unpack_row(host, h.scfg.knn,
-                      _result_id_bits(h.index.tables, h.index.cfg.bits))
-    return _apply_fallbacks(h.index, h.queries, h.scfg, h.cap, h.scfg.knn,
-                            **row)
+    with span("mih.finalize"):
+        _, host, event = h.future.result()
+        if event is not None:
+            event.synchronize()
+        row = _unpack_row(host, h.scfg.knn,
+                          _result_id_bits(h.index.tables, h.index.cfg.bits))
+        return _apply_fallbacks(h.index, h.queries, h.scfg, h.cap,
+                                h.scfg.knn, **row)
 
 
 def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
@@ -783,7 +843,8 @@ def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
                       else min(nq, max(64, nq // 4))),
         scan_budget=scan_budget, scan_dominance=scan_dominance,
         overflow_to_scan=overflow_to_scan)
-    return _pack_row(full, k, _result_id_bits(index.tables, cfg.bits))
+    with span("mih.pack"):
+        return _pack_row(full, k, _result_id_bits(index.tables, cfg.bits))
 
 
 # --------------------------------------------------------------------------
@@ -878,13 +939,15 @@ def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
     """Overflow retry at 4x caps, then the exact linear scan for queries
     still unfinished (or overflowed at a cap that already covers n). The
     per-query fields are host tensors, and the result stays on the host;
-    ``queries`` lies on the index's device."""
+    ``queries`` lies on the index's device. The rows re-run or scanned
+    add to ``mih.fallback_rows``."""
     dev = queries.device
     redo = overflow & ~not_done
     base_cap = _cap or scfg.candidate_cap
     if bool(redo.any()):
         if base_cap < index.n:
             idxs = torch.nonzero(redo).flatten()
+            count("mih.fallback_rows", idxs.shape[0])
             new_cap = min(base_cap * 4, max(index.n, 8))
             # bound the retry's candidate slots (~0.5 GB of int32 pairs)
             max_rows = max(64, (1 << 25) // max(new_cap, 1))
@@ -905,6 +968,7 @@ def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
                 "queries unfinished at max_enum_radius and index has no "
                 "code array for linear fallback; raise max_enum_radius")
         idxs = torch.nonzero(not_done).flatten()
+        count("mih.fallback_rows", idxs.shape[0])
         ld, li = linear_lib.linear_search(queries[idxs.to(dev)], index.codes,
                                           k)
         dists[idxs] = ld.cpu()

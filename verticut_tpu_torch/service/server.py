@@ -11,7 +11,8 @@ dispatch / finalize loop. Methods:
   * ``search_image_by_id(id, k, approx) -> [[id, dist], ...]``
   * ``search_by_code(code_bytes, k, approx) -> [[id, dist], ...]``
   * ``search_batch(codes_bytes, k, approx) -> [[[id, dist], ...], ...]``
-  * ``stats() -> {...}``
+  * ``stats() -> {...}``: requests, batches, codes, epoch, the named
+    timers (``timings``) and the search path's counters (``counters``)
 
 Where the port differs: the index lives on the card, so a
 ``search_image_by_id`` request carries its id to the worker, which
@@ -54,7 +55,7 @@ from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
                                        mih_search_finalize)
 from verticut_tpu_torch.service import wire
 from verticut_tpu_torch.utils.logging import get_logger
-from verticut_tpu_torch.utils.timer import Timer, timings
+from verticut_tpu_torch.utils.timer import Timer, counters, timings
 
 log = get_logger("service")
 
@@ -148,7 +149,8 @@ class ImageSearchServer:
         if method == "stats":
             return {"n_requests": self.n_requests,
                     "n_batches": self.n_batches, "n_codes": self.index.n,
-                    "epoch": self.epoch, "timings": timings()}
+                    "epoch": self.epoch, "timings": timings(),
+                    "counters": counters()}
         if method == "search_image_by_id":
             image_id, knn, approx = (list(params) + [self.default_knn, False]
                                      )[:3]
