@@ -21,6 +21,12 @@ Phases (any failure exits non-zero and prints no result):
      64- and 256-bit codes (blockmin's tensor-core instance at W = 2 and
      W = 8), and every template instance of the tensor-core kernel (W = 1
      to 8 at blocks 32, 64 and 1024) on a ragged corpus at Q = 129;
+ 3b. the fetch + score kernel == its twins, bit for bit, at the cells'
+     stage-1 shapes (inline rows over 100M entries, W = 4; compact id rows
+     over 1B entries and their 16 GB of codes, skewed ranges; chunk
+     budgets from _cap_for_radius), each timed beside its byte bound, and
+     on ragged cases (Q = 37, W = 1, 3 and 8, compact codes off their
+     16-byte grid);
   4. the main path as bench.py drives it: 1M clustered 128-bit codes,
      m = 4 tables, 8192 perturbed queries at k = 10 and k = 100, then 8192
      uniform queries at k = 10; each cell checked against the popcount
@@ -162,6 +168,9 @@ Phases (any failure exits non-zero and prints no result):
 Phases 4 to 20 each set the kernels' launch counts (blockmin's also by
 instance) to 0 before they run and read them after; the main path's
 (phases 4, 11, 11b, 12 and 13) must go through the tensor-core instance,
+the range engine's radius steps through the fetch + score kernel (phase
+4: one launch per table and radius step; 11, 13 and the inline sharded
+engine of 15: at least one),
 and the sharded engines' scan tier and linear fallback (phases 15-17)
 run the block-min scan over each rank's real rows: every blockmin launch
 there on the tensor-core instance, at least one wherever rows went to
@@ -174,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -209,7 +219,8 @@ def check(cond, msg):
 
 
 def zero_counts(kb, kp):
-    kb.launches = kp.launches = 0
+    from verticut_tpu_torch.kernels import fetch_score as kf
+    kb.launches = kp.launches = kf.launches = 0
     kb.launches_by_instance.update(dict.fromkeys(kb.INSTANCES, 0))
 
 
@@ -225,7 +236,8 @@ def blockmin_bound(nq, n, n_rows, w, block):
 
 
 def kernel_vs_twin(torch, name, kernel, twin, args, bound=None):
-    """Exact comparison of ``kernel(*args)`` and ``twin(*args)``; returns
+    """Exact comparison of ``kernel(*args)`` and ``twin(*args)`` (a tensor
+    or a tuple of tensors each); returns
     (max_abs_err, kernel ms averaged over 10 launches after a warm-up,
     twin ms of one call). ``bound``: the least time in ms, printed with
     the kernel's share of it."""
@@ -235,9 +247,13 @@ def kernel_vs_twin(torch, name, kernel, twin, args, bound=None):
     want = twin(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    check(got.shape == want.shape,
-          f"{name}: kernel shape {tuple(got.shape)} != {tuple(want.shape)}")
-    err = int((got - want).abs().max()) if got.numel() else 0
+    err = 0
+    for g, x in zip(*((t,) if isinstance(t, torch.Tensor) else t
+                      for t in (got, want)), strict=True):
+        check(g.shape == x.shape,
+              f"{name}: kernel shape {tuple(g.shape)} != {tuple(x.shape)}")
+        err = max(err, int((g.long() - x.long()).abs().max())
+                  if g.numel() else 0)
     check(err == 0, f"{name}: kernel != twin, max abs err {err}")
     del got, want
     e0 = torch.cuda.Event(enable_timing=True)
@@ -379,6 +395,25 @@ def counted_merges():
                  (topk, "merge_strips_packed",
                   counted("packed", topk.merge_strips_packed))):
         yield merges
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Count the range engine's radius steps (``single.radius_step``, each
+    of which fetches and scores every table once). Yields a dict whose
+    ``steps`` is the count."""
+    from verticut_tpu_torch.search import single
+    steps = {"steps": 0}
+    lock = threading.Lock()
+    step = single.radius_step
+
+    def counted(*a, **kw):
+        with lock:
+            steps["steps"] += 1
+        return step(*a, **kw)
+
+    with patched((single, "radius_step", counted)):
+        yield steps
 
 
 def timed(torch, fn):
@@ -629,6 +664,125 @@ def tensor_phase(torch, kb, u_dev, db):
         f"{runs[687, 512, False][1] / runs[768, 512, False][1]:.1%} of "
         f"Q=768's time for {687 / 768:.1%} of its queries")
     return max(r[0] for r in runs.values()), runs
+
+
+def fetch_score_table(torch, dev, compact, n, w, nq, seed, hot=0.02):
+    """A synthetic range table of ``n`` entries on the card, in the inline
+    or the compact layout, and stage-1 descriptors of ``nq`` random
+    queries over it. Ids are random in ``[0, n)`` with 1% pad ids ``-1``
+    (and the last block's tail padded, as a build pads it); each query
+    probes ``1 + pbits`` ranges (radii 0 and 1 over the prefix the build
+    would pick) at random starts, of Poisson(n / 2^pbits) entries, and a
+    share ``hot`` of the probes hit a hot range of 4-40 blocks (skew).
+    The chunk budget is the range engine's: ``_cap_for_radius`` of the
+    1M/100M cells' config at radii (0, 1), over ``blk``. Returns
+    ``(args, blk, chb, pbits)``, ``args`` in the layout's entry order."""
+    from verticut_tpu_torch.config import SearchConfig
+    from verticut_tpu_torch.index import directory as dir_lib
+    from verticut_tpu_torch.index.mih import ID_ROW_BLOCK, entry_block_size
+    from verticut_tpu_torch.ops import chunks
+    from verticut_tpu_torch.search import single
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blk = ID_ROW_BLOCK if compact else entry_block_size(w)
+    pbits = dir_lib.pick_range_pbits(n, 32 * w // 4, blk)
+    scfg = SearchConfig(knn=10, candidate_cap=8192, max_enum_radius=5)
+    chb = max(4, single._cap_for_radius(scfg, n, (0, 1), pbits, blk) // blk)
+    nb = -(-n // blk)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    ids = torch.randint(0, n, (nb, blk), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand((nb, blk), generator=g, device=dev) < 0.01] = -1
+    ids.view(-1)[n:] = -1
+    if compact:
+        args = [ids, words(n, w)]
+    else:
+        rows = words(nb, blk * (w + 1))
+        rows[:, :blk] = ids
+        args = [rows]
+    del ids
+    h = 1 + pbits
+    starts = torch.randint(0, n, (nq, h), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts = torch.poisson(torch.full((nq, h), n / 2.0 ** pbits,
+                                      device=dev), generator=g)
+    hot_n = torch.randint(4 * blk, 40 * blk, (nq, h), generator=g,
+                          device=dev).to(counts.dtype)
+    hot_p = torch.rand((nq, h), generator=g, device=dev) < hot
+    counts = torch.minimum(torch.where(hot_p, hot_n, counts).to(torch.int32),
+                           n - starts)
+    blk_id, lo, hi, _, _ = chunks.chunk_descriptors(
+        starts, counts, blk=blk, chb=chb, n_blocks=nb)
+    args += [blk_id, lo, hi, words(nq, w)]
+    return args, blk, chb, pbits
+
+
+def fetch_score_bound(compact, args, ids, blk, w):
+    """The least time of a fetch + score call, ms, at the memory rate: the
+    outputs written once (8 B a slot), the descriptors (12 B a chunk) and
+    queries read once, 4 B of id per in-window slot and per valid slot its
+    code, W words of the inline row or one 32-byte sector of the codes
+    (the least a scattered read of a code moves); and the valid slots."""
+    blk_id, lo, hi = args[-4:-1]
+    nq, chb = blk_id.shape
+    in_window = int((hi.clamp(0, blk) - lo.clamp(0, blk)).clamp(min=0).sum())
+    valid = int((ids >= 0).sum())
+    code = 32 if compact else 4 * w
+    nbytes = (8 * nq * chb * blk + 12 * nq * chb + 4 * nq * w
+              + 4 * in_window + code * valid)
+    return nbytes / H100_BYTES * 1e3, valid
+
+
+def fetch_score_pair(kf, compact, blk):
+    """The layout's kernel entry and twin, each called as ``f(*args)``."""
+    if compact:
+        return kf.fetch_score_idrows, kf.fetch_score_idrows_reference
+    return (functools.partial(kf.fetch_score_blocks, blk=blk),
+            functools.partial(kf.fetch_score_blocks_reference, blk=blk))
+
+
+def fetch_score_phase(torch, kf, dev):
+    """Phase 3b: the fetch + score kernel against its twins, both layouts,
+    at the cells' stage-1 shapes (inline rows over 100M entries at W = 4;
+    id rows over 1B entries and their codes, skewed), each time beside its
+    bound, then ragged cases (W = 1, 3, 8; the W = 8 compact codes one
+    word off their allocation). Returns ``{layout: (err, ms, plain_ms,
+    bound_ms, shape)}`` of the cell shapes."""
+    out = {}
+    for compact, n in ((False, N_SCALE), (True, N_BILLION)):
+        layout = "compact" if compact else "inline"
+        args, blk, chb, pbits = fetch_score_table(torch, dev, compact, n, 4,
+                                                  Q, seed=31 + compact)
+        kernel, twin = fetch_score_pair(kf, compact, blk)
+        _, ids = kernel(*args)
+        bound, valid = fetch_score_bound(compact, args, ids, blk, 4)
+        del ids
+        shape = f"Q={Q} CHB={chb} blk={blk} W=4 N={n}"
+        err, ms, plain_ms = kernel_vs_twin(
+            torch, f"fetch_score {layout} {shape} (pbits {pbits}, "
+            f"{valid} valid slots)", kernel, twin, args, bound=bound)
+        out[layout] = (err, ms, plain_ms, bound, shape)
+        del args
+        torch.cuda.empty_cache()
+    for w in (1, 3, 8):
+        for compact in (False, True):
+            args, blk, chb, _ = fetch_score_table(
+                torch, dev, compact, 100_003, w, 37, seed=w, hot=0.2)
+            if compact and w == 8:      # rows off the 16- and 8-byte grid
+                spare = torch.empty(args[1].numel() + 1, dtype=torch.int32,
+                                    device=dev)
+                args[1] = spare[1:].view(args[1].shape).copy_(args[1])
+            kernel, twin = fetch_score_pair(kf, compact, blk)
+            check(all(torch.equal(a, b)
+                      for a, b in zip(kernel(*args), twin(*args))),
+                  f"fetch_score {'compact' if compact else 'inline'} W={w} "
+                  f"Q=37 CHB={chb} blk={blk}: kernel != twin")
+    log("fetch_score ragged cases (Q=37, W=1/3/8, both layouts, the W=8 "
+        "compact codes off their 16-byte grid): kernel == twin")
+    return out
 
 
 def dispatch_phase(torch, index, q_dev, scfg):
@@ -1155,10 +1309,14 @@ def sharded_counts(kb, kp, name, seen, tier):
     over each rank's real rows: every blockmin launch on the tensor-core
     instance, at least one wherever rows went to the tier, and no
     pairwise launch. Adds the counts read since the last zeroing (by
-    instance, and the tier's rows) to ``seen`` and zeroes them."""
+    instance, and the tier's rows; the fetch + score kernel's launches,
+    which the inline engine's radius steps make) to ``seen`` and zeroes
+    them."""
+    from verticut_tpu_torch.kernels import fetch_score as kf
     by = dict(kb.launches_by_instance)
     seen["blockmin"] += kb.launches
     seen["pairwise"] += kp.launches
+    seen["fetch_score"] += kf.launches
     seen["rows"] += tier["rows"]
     for k, v in by.items():
         seen["by_instance"][k] += v
@@ -1169,7 +1327,8 @@ def sharded_counts(kb, kp, name, seen, tier):
           f"{name}: {tier['rows']} rows went to the scan tier and blockmin "
           f"launched no time")
     log(f"{name}: blockmin launches {by}, {tier['rows']} rows to the scan "
-        f"tier and fallback, pairwise launches {kp.launches}")
+        f"tier and fallback, pairwise launches {kp.launches}, fetch_score "
+        f"launches {kf.launches}")
     zero_sharded(kb, kp, tier)
 
 
@@ -1180,7 +1339,7 @@ def zero_sharded(kb, kp, tier):
 
 
 def no_launches():
-    return {"blockmin": 0, "pairwise": 0, "rows": 0,
+    return {"blockmin": 0, "pairwise": 0, "fetch_score": 0, "rows": 0,
             "by_instance": {"tensor": 0, "generic": 0}}
 
 
@@ -1188,7 +1347,7 @@ def add_launches(*seen):
     """The sum of :func:`no_launches` records."""
     out = no_launches()
     for s in seen:
-        for k in ("blockmin", "pairwise", "rows"):
+        for k in ("blockmin", "pairwise", "fetch_score", "rows"):
             out[k] += s[k]
         for k, v in s["by_instance"].items():
             out["by_instance"][k] += v
@@ -2044,6 +2203,7 @@ def main() -> int:
     from verticut_tpu_torch.index import build_index
     from verticut_tpu_torch.kernels import _build
     from verticut_tpu_torch.kernels import blockmin as kb
+    from verticut_tpu_torch.kernels import fetch_score as kf
     from verticut_tpu_torch.kernels import pairwise as kp
     from verticut_tpu_torch.bench import perturbed_queries
     from verticut_tpu_torch.oracle_drive import run_cells
@@ -2059,11 +2219,11 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len((kb, kp))) as pool:
-        for f in [pool.submit(m.build) for m in (kb, kp)]:
+    with ThreadPoolExecutor(len((kb, kp, kf))) as pool:
+        for f in [pool.submit(m.build) for m in (kb, kp, kf)]:
             f.result()
     log(f"kernels built for sm_90a in {time.perf_counter() - t0:.2f} s")
-    for m in (kb, kp):
+    for m in (kb, kp, kf):
         log(f"  {os.path.relpath(m.SOURCE)}")
         text = _build.build_logs.get(m.NAME, "")
         for fn, spill, regs in re.findall(
@@ -2100,6 +2260,8 @@ def main() -> int:
     max_err = {k: max(v, err) for k, v in max_err.items()}
     max_err["blockmin"] = max(max_err["blockmin"],
                               instances_phase(torch, kb, dev))
+    fs = fetch_score_phase(torch, kf, dev)
+    max_err["fetch_score"] = max(r[0] for r in fs.values())
 
     # 4. the main path, counted
     cfg = MIHConfig(bits=128, n_tables=4)
@@ -2111,13 +2273,20 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"build N={N_MAIN}: {time.perf_counter() - t0:.3f} s, pbits "
         f"{index.tables[0].directory.pbits}")
-    run_cell(torch, "1M k=10", index, q_dev, k10, 256, kb)
-    run_cell(torch, "1M k=100", index, q_dev, k100, 256, kb)
-    uniform, _ = run_cell(torch, "1M uniform k=10", index, u_dev, k10, 256,
-                          kb)
+    with counted_steps() as steps:
+        run_cell(torch, "1M k=10", index, q_dev, k10, 256, kb)
+        run_cell(torch, "1M k=100", index, q_dev, k100, 256, kb)
+        uniform, _ = run_cell(torch, "1M uniform k=10", index, u_dev, k10,
+                              256, kb)
     main_launches = kb.launches
     main_by_instance = dict(kb.launches_by_instance)
-    log(f"main path blockmin launches by instance: {main_by_instance}")
+    main_fetch = kf.launches
+    log(f"main path blockmin launches by instance: {main_by_instance}; "
+        f"fetch_score launches {main_fetch} in {steps['steps']} radius "
+        f"steps of {cfg.n_tables} tables")
+    check(main_fetch > 0 and main_fetch == cfg.n_tables * steps["steps"],
+          f"the main path launched fetch_score {main_fetch} times in "
+          f"{steps['steps']} radius steps")
     check(uniform > 0, "the uniform cell launched no blockmin kernel")
     check(main_by_instance["tensor"] > 0,
           "the main path launched no tensor-core blockmin kernel")
@@ -2148,7 +2317,10 @@ def main() -> int:
     zero_counts(kb, kp)
     scale_launches, scale_by_instance, index_100m = scale_phase(
         torch, kb, dev, k10, k100)
-    log(f"100M phase blockmin launches by instance: {scale_by_instance}")
+    scale_fetch = kf.launches
+    log(f"100M phase blockmin launches by instance: {scale_by_instance}; "
+        f"fetch_score launches {scale_fetch}")
+    check(scale_fetch > 0, "the 100M phase launched no fetch_score kernel")
     check(scale_by_instance["tensor"] > 0,
           "the 100M phase launched no tensor-core blockmin kernel")
 
@@ -2179,6 +2351,9 @@ def main() -> int:
 
     # 13. 1B codes (counts zeroed inside)
     billion_by_instance = billion_phase(torch, kb, kp, dev, k10)
+    billion_fetch = kf.launches
+    log(f"1B phase fetch_score launches (compact layout) {billion_fetch}")
+    check(billion_fetch > 0, "the 1B phase launched no fetch_score kernel")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2211,6 +2386,8 @@ def main() -> int:
     sharded_launches = add_launches(world_seen, padded_seen, service_seen,
                                     compact_seen)
     log(f"phases 15-17 launches: {sharded_launches}")
+    check(world_seen["fetch_score"] > 0,
+          "the inline sharded engine launched no fetch_score kernel")
     check(sharded_launches["by_instance"]["tensor"] > 0,
           "phases 15-17 launched no tensor-core blockmin kernel")
     gc.collect()
@@ -2287,7 +2464,20 @@ def main() -> int:
          "bound_what": "device-memory stores", "library_ms": pw_lib,
          "shape": f"Q={Q} N={N_PAIRWISE} W=4",
          "generic_ms": gen_pw[1], "generic_plain_ms": gen_pw[2],
-         "generic_shape": f"Q={Q} N={N_PAIRWISE} W=2"}]}),
+         "generic_shape": f"Q={Q} N={N_PAIRWISE} W=2"},
+        {"name": "fetch_score", "route": "cuda",
+         "source": "verticut_tpu_torch/csrc/fetch_score.cu",
+         "replaces": None, "launches": main_fetch,
+         "scale_launches": scale_fetch, "launches_1b": billion_fetch,
+         "sharded_launches": sharded_launches["fetch_score"],
+         "max_abs_err": max_err["fetch_score"],
+         "ms": fs["inline"][1], "plain_ms": fs["inline"][2],
+         "bound_ms": fs["inline"][3], "bound_by": "bytes",
+         "bound_what": "device-memory reads and writes", "library_ms": None,
+         "shape": fs["inline"][4], "compact_ms": fs["compact"][1],
+         "compact_plain_ms": fs["compact"][2],
+         "compact_bound_ms": fs["compact"][3],
+         "compact_shape": fs["compact"][4]}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

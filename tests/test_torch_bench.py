@@ -91,6 +91,7 @@ def test_breakdown_cell_on_cpu():
     assert rec["kernels"] == 0 and rec["top"] == []
     assert rec["launch_cpu_s"] == rec["sync_cpu_s"] == 0
     assert rec["blockmin"] == {"tensor": 0, "generic": 0}
+    assert rec["fetch_score"] == 0
 
 
 def test_breakdown_pair_on_cpu():

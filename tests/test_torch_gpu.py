@@ -1,8 +1,9 @@
-"""Tests of verticut_tpu_torch that need an NVIDIA GPU: the CUDA blockmin
-and pairwise kernels against their plain twins (blockmin also inside the
-folded block-min scan), and the search paths on the card (fused and loop
-driver, range and bucket engines, every linear_search method) against the
-popcount oracle. Exact equality throughout. They skip without CUDA.
+"""Tests of verticut_tpu_torch that need an NVIDIA GPU: the CUDA blockmin,
+pairwise and fetch + score kernels against their plain twins (blockmin
+also inside the folded block-min scan), and the search paths on the card
+(fused and loop driver, range and bucket engines, every linear_search
+method) against the popcount oracle. Exact equality throughout. They
+skip without CUDA.
 
 This file imports neither jax nor verticut_tpu, so on a machine without
 JAX it runs apart from tests/conftest.py:
@@ -17,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+import fetch_score_cases
 from verticut_tpu_torch import bits, codes
 from verticut_tpu_torch.config import MIHConfig, SearchConfig
 from verticut_tpu_torch.index import build_index
 from verticut_tpu_torch.kernels import blockmin as kb
+from verticut_tpu_torch.kernels import fetch_score as kf
 from verticut_tpu_torch.kernels import pairwise as kp
 from verticut_tpu_torch.search import (linear_search, mih_search,
                                        mih_search_dispatch,
@@ -172,6 +175,38 @@ def test_generic_pairwise_matches_twin(cuda_device, w):
     torch.cuda.synchronize()
     assert kp.launches == before + 1
     assert torch.equal(got, kp.pairwise_reference(q, db))
+
+
+FETCH_TWINS = {"inline": (kf.fetch_score_blocks,
+                          kf.fetch_score_blocks_reference),
+               "compact": (kf.fetch_score_idrows,
+                           kf.fetch_score_idrows_reference)}
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("layout,aligned", [("inline", True),
+                                            ("compact", True),
+                                            ("compact", False)])
+def test_fetch_score_kernel_matches_twin(cuda_device, layout, w, aligned):
+    """Both layouts' entries, W = 1-8 (blocks above 32 rows at W = 1 and
+    2 inline), one launch each, bit-equal to the twin; ``aligned=False``
+    moves the compact codes one word off their allocation, so the kernel
+    takes its narrower loads."""
+    case = fetch_score_cases.make(layout, w, seed=w, nq=300, chb=40, nb=400)
+    t = case.tensors(cuda_device)
+    if not aligned:
+        spare = torch.empty(t[1].numel() + 1, dtype=torch.int32,
+                            device=cuda_device)
+        t[1] = spare[1:].view(t[1].shape).copy_(t[1])
+    kernel, twin = FETCH_TWINS[layout]
+    kw = {} if layout == "compact" else {"blk": case.blk}
+    before = kf.launches
+    got = kernel(*t, **kw)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    want = twin(*t, **kw)
+    for g, x in zip(got, want, strict=True):
+        assert torch.equal(g, x)
 
 
 @pytest.mark.parametrize("uniform", [False, True])

@@ -19,8 +19,9 @@ bit flips), both at k = 10. It prints one JSON line per cell:
   ``cudaLaunchKernel``, and ``sync_cpu_s``, the host time of the calls
   that wait for the card (:data:`SYNC_CALLS`);
 * ``top``: the kernels by device time (name up to its argument list,
-  seconds, launches), and ``blockmin``, the batch's blockmin launches by
-  instance.
+  seconds, launches), ``blockmin``, the batch's blockmin launches by
+  instance, and ``fetch_score``, its fetch + score kernel launches (one a
+  table and radius step on the card, none on the CPU).
 
 For the k = 10 cell it prints one more line, ``pair``
 (:func:`profile_pair`): two batches back to back against two handles in
@@ -60,6 +61,7 @@ from verticut_tpu_torch import bits as bits_lib
 from verticut_tpu_torch import bench, codes
 from verticut_tpu_torch.config import SearchConfig
 from verticut_tpu_torch.kernels import blockmin as kb
+from verticut_tpu_torch.kernels import fetch_score as kf
 from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
                                        mih_search_finalize)
 from verticut_tpu_torch.utils import timer
@@ -435,10 +437,12 @@ def profile_cell(index, queries, scfg: SearchConfig) -> dict:
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     before = dict(kb.launches_by_instance)
+    fetch_before = kf.launches
     with torch.profiler.profile(activities=acts) as prof:
         mih_search(index, queries, scfg)
         bench.sync(dev)
     blockmin = {k: v - before[k] for k, v in kb.launches_by_instance.items()}
+    fetch_score = kf.launches - fetch_before
     kernels, by_name, launch_us, sync_us = _kernels(prof)
     wall = statistics.median(walls)
     device = _union(kernels) * 1e-6 if kernels else None
@@ -448,7 +452,7 @@ def profile_cell(index, queries, scfg: SearchConfig) -> dict:
             "kernels": len(kernels), "launch_cpu_s": launch_us * 1e-6,
             "sync_cpu_s": sync_us * 1e-6,
             "top": [[n, t * 1e-6, c] for n, (t, c) in top],
-            "blockmin": blockmin}
+            "blockmin": blockmin, "fetch_score": fetch_score}
 
 
 def run(n: int, device) -> list:

@@ -6,7 +6,8 @@ straddles, each with a ``(lo, hi)`` window of valid rows; all chunks of all
 probes of a query are flattened into one fixed budget of ``chb`` slots.
 The blocks are then fetched and scored from the inline ``(id, code)`` rows
 (:func:`fetch_score_blocks`) or from the compact layout's id-only rows and
-the shared code array (:func:`fetch_score_idrows`).
+the shared code array (:func:`fetch_score_idrows`): on the card by one
+launch of the fetch + score kernel a table (``kernels/fetch_score.py``).
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from typing import Tuple
 
 import torch
 
-from verticut_tpu_torch.bits import popcount32
-from verticut_tpu_torch.ops.topk import INF_DIST, INVALID_ID
+from verticut_tpu_torch.kernels import fetch_score
 
 
 def chunk_descriptors(starts: torch.Tensor, counts: torch.Tensor, *, blk: int,
@@ -67,45 +67,21 @@ def fetch_score_blocks(entry_rows: torch.Tensor, blk_id: torch.Tensor,
     ``entry_rows: int32[NB, blk*RW]`` (lane ``w*blk + r`` = word ``w`` of
     entry ``r``; word 0 = id, pad id -1), ``blk_id/lo/hi: int32[Q, CHB]``,
     ``queries: int32[Q, W]`` -> ``(dist int32[Q, CHB*blk], id int32[Q,
-    CHB*blk])`` with invalid slots at ``(INF_DIST, -1)``."""
-    w = queries.shape[-1]
-    nq, chb = blk_id.shape
-    g = entry_rows[blk_id.long()]                            # [Q,CHB,blk*RW]
-    ids = g[..., 0:blk]
-    dist = torch.zeros_like(ids)
-    for j in range(w):
-        x = g[..., (1 + j) * blk:(2 + j) * blk] ^ queries[:, None, j:j + 1]
-        dist += popcount32(x)
-    pos = torch.arange(blk, dtype=torch.int32, device=blk_id.device)
-    valid = (pos >= lo[..., None]) & (pos < hi[..., None]) & (ids >= 0)
-    dist = torch.where(valid, dist, INF_DIST)
-    ids = torch.where(valid, ids, INVALID_ID)
-    return dist.reshape(nq, chb * blk), ids.reshape(nq, chb * blk)
+    CHB*blk])`` with invalid slots at ``(INF_DIST, -1)``. The CUDA kernel
+    on the card, its plain twin on the CPU (:mod:`..kernels.fetch_score`).
+    """
+    return fetch_score.fetch_score_blocks(entry_rows, blk_id, lo, hi,
+                                          queries, blk=blk)
 
 
 def fetch_score_idrows(entry_idrows: torch.Tensor, codes: torch.Tensor,
                        blk_id: torch.Tensor, lo: torch.Tensor,
                        hi: torch.Tensor, queries: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The compact layout's fetch + score: gather the descriptor blocks of
-    id-only rows (``int32[NBc, blk]``, pad id -1), then each candidate's
-    code from the id-ordered ``codes`` ``int32[N, W]``, and score them.
-    Same outputs as :func:`fetch_score_blocks`. The chunk axis is cut into
-    slices so the gathered ``[Q, slice, blk, W]`` codes stay under 2^23
-    words, as the reference slices it."""
-    nq, chb = blk_id.shape
-    blk = entry_idrows.shape[1]
-    n, w = codes.shape
-    pos = torch.arange(blk, dtype=torch.int32, device=blk_id.device)
-    sl = max(8, (1 << 23) // max(nq * blk * w, 1))
-    d_parts, i_parts = [], []
-    for c0 in range(0, chb, sl):
-        cid = entry_idrows[blk_id[:, c0:c0 + sl].long()]      # [Q, s, blk]
-        g = codes[cid.clamp(0, n - 1).long()]                  # [Q,s,blk,W]
-        dist = popcount32(g ^ queries[:, None, None, :]).sum(
-            dim=-1, dtype=torch.int32)
-        ok = ((pos >= lo[:, c0:c0 + sl, None])
-              & (pos < hi[:, c0:c0 + sl, None]) & (cid >= 0))
-        d_parts.append(torch.where(ok, dist, INF_DIST).reshape(nq, -1))
-        i_parts.append(torch.where(ok, cid, INVALID_ID).reshape(nq, -1))
-    return torch.cat(d_parts, dim=-1), torch.cat(i_parts, dim=-1)
+    """The compact layout's fetch + score: the descriptor blocks of
+    id-only rows (``int32[NBc, blk]``, pad id -1), each candidate's code
+    from the id-ordered ``codes`` ``int32[N, W]``, scored. Same outputs as
+    :func:`fetch_score_blocks`; the CUDA kernel on the card, its plain twin
+    on the CPU (:mod:`..kernels.fetch_score`)."""
+    return fetch_score.fetch_score_idrows(entry_idrows, codes, blk_id, lo,
+                                          hi, queries)

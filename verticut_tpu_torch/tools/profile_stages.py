@@ -11,7 +11,8 @@ at 17-bit prefixes), and stage 2, ``[Q / 8, 136]`` (radius 2):
   flipped prefix;
 * ``chunk_descriptors``: ``ops/chunks.chunk_descriptors`` of the ranges;
 * ``fetch_score``: ``chunks.fetch_score_blocks`` (inline rows) or
-  ``fetch_score_idrows`` (the compact layout) of the descriptors;
+  ``fetch_score_idrows`` (the compact layout) of the descriptors, one
+  launch of the fetch + score kernel a table on the card;
 * ``strips+merge``: every table's top-k strip by ``topk.table_topk_packed``
   and the dedup merge ``merge_strips_packed`` into an empty pool; with
   ``chunkmin``, also by ``table_topk_chunkmin_packed``, the production
