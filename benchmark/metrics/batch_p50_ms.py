@@ -1,5 +1,6 @@
 """batch_p50_ms: the median of the same per-batch times as
-``batch_p95_ms`` (the entry layer, host clock)."""
+``batch_p95_ms`` (the entry layer, host clock; on several cards rank
+0's, as there)."""
 
 import numpy as np
 

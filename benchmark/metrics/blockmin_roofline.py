@@ -5,7 +5,9 @@ corpus at block 512, through the public wrapper
 ``verticut_tpu_torch.kernels.blockmin.blockmin``, one call per 2^27
 corpus rows (one call up to 134M codes). Timed by CUDA events over the whole corpus, the median of
 three passes after one warm pass; the bound is
-``roofline.hamming_blockmin``'s work at the card's published peaks."""
+``roofline.hamming_blockmin``'s work at the card's published peaks.
+On several cards: rank 0's card, over the whole corpus, which rank 0
+keeps, read after the other ranks have finished."""
 
 import statistics
 import sys

@@ -1,6 +1,7 @@
 """launches_per_batch: kernels that ran on the card in the traced
 stretch (``torch.profiler``'s device records, copies and fills left
-out), per batch finalized in it."""
+out), per batch finalized in it. On several cards: rank 0's card, NCCL's
+kernels among them."""
 
 
 def read(run):

@@ -5,7 +5,8 @@ program's counters ``mih.scan_budget_rows`` over ``mih.batches``
 counts at its end, all at once, and a fallback re-run adds no batch. The
 counters add up every pipeline of the process, so the reading covers
 the warm-up batches, the window and the traced stretch, all of the
-cell's traffic. A program without the counters reads nothing."""
+cell's traffic. A program without the counters reads nothing, and so do the sharded
+engines (several cards), which count no client batches."""
 
 
 def read(run):

@@ -17,6 +17,10 @@ reference (``check.py``). ``--control tail`` holds, in the program's
 place, the reference over all but the last 1/64 of the corpus: the
 control, which has to come out not correct.
 
+A configuration that names a mesh runs across several cards instead, one
+process per card through the program's sharded engines
+(``multicard.py``).
+
 The last line on standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
 ``breakdown``, and last ``compared``, each compared number beside its
@@ -315,19 +319,31 @@ def parse(argv):
 def main(argv=None) -> int:
     args = parse(sys.argv[1:] if argv is None else argv)
     cell = spec_lib.load_cell(args.workload)
+    multi = "mesh" in cell.config
+    if multi:
+        from benchmark import multicard
+        why = multicard.refusal(cell)
+        if why:
+            log(f"bench: {why}")
+            return 2
     if not torch.cuda.is_available():
         log("bench: torch.cuda.is_available() is False; the benchmark "
             "measures a CUDA card")
         return 2
-    chips = int(next(w["chips"] for w in spec_lib.load_json(
-        spec_lib.SPEC_FILE)["workloads"] if w["name"] == args.workload))
-    if torch.cuda.device_count() < chips:
-        log(f"bench: {args.workload} needs {chips} cards, "
+    if torch.cuda.device_count() < cell.chips:
+        log(f"bench: {args.workload} needs {cell.chips} cards, "
             f"{torch.cuda.device_count()} visible")
         return 2
-    torch.set_num_threads(THREADS)
-    out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                   torch.device("cuda", 0), control=args.control)
+    if multi:
+        out = multicard.run_cell(cell, args.seed, args.seconds,
+                                 bool(args.trace), T_START,
+                                 control=args.control)
+        if out is None:
+            return 1
+    else:
+        torch.set_num_threads(THREADS)
+        out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                       torch.device("cuda", 0), control=args.control)
     for name, c in out["compared"].items():
         log(f"compared {name} {c['value']} limit {c['limit']}")
     print(json.dumps(out), flush=True)

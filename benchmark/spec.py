@@ -7,6 +7,13 @@ A workload entry names a configuration and a traffic mix; the files are
 key lists; an end-to-end metric without the key to every cell, a
 per-layer one without it to every cell that reports the end-to-end
 metric it ``moves``.
+
+A configuration that names a mesh, ``"mesh": {"table": T, "shard": S,
+"query": Q}``, runs across ``T * S * Q`` cards, which must equal its
+cells' ``chips``: one process per card through the program's sharded
+engines (``multicard.py``), its ``layout`` choosing the inline or the
+compact engine, one batch in flight (traffic ``depth`` 1). A
+configuration without the key runs on one card (``run.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ class Cell:
     params: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    chips: int = 1
 
     @property
     def batch(self) -> int:
@@ -73,7 +81,7 @@ def load_cell(workload: str, spec: dict = None) -> Cell:
                 config=load_json(data_file("configs", w["config"])),
                 traffic=load_json(data_file("traffic", w["traffic"])),
                 params=load_json(data_file("cells", workload)),
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer, chips=int(w["chips"]))
 
 
 def reader(name: str) -> Callable:

@@ -142,6 +142,19 @@ def test_trace_reduction():
     assert sum(gaps.values()) == pytest.approx(0.004)
 
 
+def test_a_collective_counts_once():
+    """The profiler records an NCCL collective twice on the card: an
+    ``nccl:<op>`` range and the kernel under it. The range is busy time;
+    only the kernel is an operation and a launch."""
+    ms = 1_000_000
+    kern = "ncclDevKernel_AllGather_RING_LL"
+    t = trace.reduce([Ev("nccl:all_gather", 0, 3 * ms, True),
+                      Ev(kern, ms, 2 * ms, True)], 0, 10 * ms, batches=1)
+    assert t.launches == 1
+    assert t.device_ops == [[kern, pytest.approx(0.002)]]
+    assert t.busy_s == pytest.approx(0.003)
+
+
 def test_keeper_draws_each_stratum():
     k, m = 3, 4
     res = SimpleNamespace(

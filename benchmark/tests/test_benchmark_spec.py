@@ -127,3 +127,14 @@ def test_data_files_are_named_from_names():
         for f in os.listdir(os.path.join(spec.HERE, kind)):
             assert f.endswith(".json") and NAME.match(f[:-5])
             json.loads(open(os.path.join(spec.HERE, kind, f)).read())
+
+
+def test_a_mesh_spans_its_cells_chips():
+    """A configuration that names a mesh runs across T * S * Q cards: as
+    many as each of its cells asks for."""
+    for w in SPEC["workloads"]:
+        cfg = spec.load_json(spec.data_file("configs", w["config"]))
+        if "mesh" in cfg:
+            m = cfg["mesh"]
+            assert set(m) == {"table", "shard", "query"}
+            assert m["table"] * m["shard"] * m["query"] == w["chips"]

@@ -18,6 +18,9 @@ TOP = 10
 #: characters kept of a kernel or operator name
 NAME_CHARS = 160
 OUTSIDE = "host_code_outside_operators"
+#: the prefix of the device record the profiler puts around each NCCL
+#: collective's kernel: busy time, but neither an operation nor a launch
+COLLECTIVE_RANGE = "nccl:"
 
 
 @dataclasses.dataclass
@@ -81,6 +84,8 @@ def reduce(events, t0: int, t1: int, batches: int) -> Trace:
                 continue
             device.append((a, b))
             name = e.name()
+            if name.startswith(COLLECTIVE_RANGE):
+                continue
             by_name[name[:NAME_CHARS]] += (b - a) * 1e-9
             if not name.startswith(("Memcpy", "Memset")):
                 launches += 1
