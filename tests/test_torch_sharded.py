@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -31,8 +32,11 @@ from verticut_tpu.search.sharded import sharded_linear_search as jax_lin
 from verticut_tpu.search.sharded import sharded_mih_search as jax_search
 
 import torch_world_cases as cases
+from benchmark.check import judge
+from benchmark.references import hamming_topk
 from verticut_tpu_torch.bits import as_codes
 from verticut_tpu_torch.index import build_index
+from verticut_tpu_torch.index.mih import sort_table
 from verticut_tpu_torch.parallel.world import spawn
 from verticut_tpu_torch.search import linear_search, mih_search
 
@@ -173,6 +177,84 @@ def test_sharded_linear_scan(world):
     for want_d, want_i in ((d, i), (ed, ei)):
         assert np.array_equal(got["dists"], np.asarray(want_d))
         assert np.array_equal(got["ids"], np.asarray(want_i))
+
+
+@pytest.mark.parametrize("name", [c[0] for c in cases.BUILDS] + ["single"])
+def test_build_is_byte_equal_to_the_plain_build(request, name):
+    """Every rank's entry rows, directory and codes slice equal, byte for
+    byte, to those of the build before it was cut to fit 1B codes a rank
+    (``torch_world_cases.plain_build``); ``single``: the one-card build's
+    rows equal to those of ``make_entry_rows`` before it could build a
+    slice."""
+    if name == "single":
+        db = cases.make_db(1001, seed=3)
+        idx = build_index(db, cases.CFG4, directory="range",
+                          keep_entry_ids=False, device="cpu")
+        codes_t = as_codes(db, "cpu")
+        for t, table in enumerate(idx.tables):
+            want = cases.plain_make_entry_rows(
+                sort_table(codes_t, t, cases.CFG4.s_bits)[1], codes_t)
+            assert torch.equal(table.entry_rows, want), t
+        return
+    world = request.getfixturevalue("world")
+    got = [r[name] for r in world.result() if r[name] is not None]
+    shape = next(c[1] for c in cases.BUILDS if c[0] == name)
+    assert len(got) == shape[0] * shape[1] * shape[2]
+    for r in got:
+        for f in ("entry_rows", "se", "codes"):
+            assert r["new"][f].dtype == r["old"][f].dtype, f
+            assert np.array_equal(r["new"][f], r["old"][f]), f
+        assert r["new"]["n_rows"] == r["old"]["n_rows"]
+
+
+def wide_results(world):
+    got = [r["wide"] for r in world.result() if r["wide"] is not None]
+    assert len(got) == 4
+    return got
+
+
+def test_wide_id_strips_hold_to_the_reference(world):
+    """At 4x1x1 with the packed selections refused, as 1B codes refuse
+    them: both calls' dists and ids against the plain reference
+    (``benchmark/references/hamming_topk.py``), ties to the smaller id,
+    with the configuration's exception for rows the stop rule finished at
+    ``n_tables * (radius + 1)`` as ``benchmark/check.py`` judges them; the
+    same answers on every rank."""
+    got = wide_results(world)
+    db, q = cases.wide_db()
+    corpus, queries = as_codes(db, "cpu"), as_codes(q, "cpu")
+    k, m = cases.WIDE_SCFG.knn, cases.CFG4.n_tables
+    rd, ri = hamming_topk.topk(queries, corpus, k)
+    for r in got:
+        assert r["packed_calls"] and all(r["packed_calls"])
+        for res in (r["first"], r["second"]):
+            for f, v in res.items():
+                assert np.array_equal(v, got[0]["first"][f]), f
+    res = {f: torch.from_numpy(v) for f, v in got[0]["first"].items()}
+    true_d = hamming_topk.hamming(corpus[res["ids"].clamp(0).long()],
+                                  queries[:, None, :])
+    boundary = res["dists"][:, k - 1] == m * (res["radius"] + 1)
+    for j in range(queries.shape[0]):
+        assert judge(res["dists"][j], res["ids"][j], rd[j], ri[j], true_d[j],
+                     corpus.shape[0], bool(boundary[j])) is None, j
+    # the uniform rows reach past the radius step
+    assert (res["dists"][cases.WIDE_NEAR:, k - 1]
+            > m * (res["radius"][cases.WIDE_NEAR:] + 1)).any()
+
+
+def test_sharded_spans_and_counters(world):
+    """The counters of two calls: one sharded batch and its queries a
+    call, the same collectives and bytes on every rank; the spans of the
+    sharded path under a CPU profiler."""
+    got = wide_results(world)
+    nq = cases.WIDE_NEAR + cases.WIDE_FAR
+    for r in got:
+        c = r["counters"]
+        assert c["mih.sharded_batches"] == 2
+        assert c["mih.sharded_queries"] == 2 * nq
+        assert c["coll.calls"] == got[0]["counters"]["coll.calls"] > 2
+        assert c["coll.bytes"] == got[0]["counters"]["coll.bytes"] > 0
+        assert r["spans"] == sorted(cases.SHARDED_SPANS)
 
 
 @pytest.mark.slow

@@ -136,6 +136,8 @@ def run_sharded(rank):
 
     mesh = make_mesh(4, 2, 1)
     out["collectives"] = _collectives(mesh) if mesh.member else None
+    out.update(_builds())
+    out.update(_wide_ids())
     db = make_db(333, seed=4)             # not divisible by 8
     if mesh.member:
         idx = build_sharded_index(db, MIHConfig(), mesh)
@@ -145,6 +147,145 @@ def run_sharded(rank):
     else:
         out["linear"] = None
     return out
+
+
+#: (name, mesh, cfg, n): the sharded build against its plain copy. The
+#: shard unit is n_shards * 200 entries: no n here is a multiple of it;
+#: at 100 over 4 shards, shards 1-3 hold pads alone
+BUILDS = [
+    ("build_411", (4, 1, 1), CFG4, 1001),
+    ("build_141", (1, 4, 1), CFG4, 1001),
+    ("build_122", (1, 2, 2), CFG4, 1001),
+    ("build_114", (1, 1, 4), CFG4, 1001),
+    ("build_141_n100", (1, 4, 1), CFG4, 100),
+    # 16-bit substrings: the pads lie past every range
+    ("build_141_s16", (1, 4, 1), MIHConfig(bits=128, n_tables=8), 1001),
+]
+
+
+def plain_make_entry_rows(sorted_ids, codes):
+    """``index.mih.make_entry_rows`` as it was before it could build a
+    slice: the whole padded table, its ids padded in one copy."""
+    from verticut_tpu_torch.index.mih import (entry_block_size,
+                                              entry_row_align)
+    n, w = codes.shape
+    rw, blk = 1 + w, entry_block_size(w)
+    npad = -(-max(n, 1) // entry_row_align(w)) * entry_row_align(w)
+    ids = torch.full((npad,), -1, dtype=torch.int32)
+    ids[:sorted_ids.shape[0]] = sorted_ids
+    g = codes[ids.clamp(min=0).long()]
+    g[ids < 0] = 0
+    return torch.cat([ids[:, None], g], dim=1).reshape(
+        -1, blk, rw).transpose(1, 2).reshape(-1, blk * rw)
+
+
+def plain_build(db, cfg, mesh) -> dict:
+    """``search.sharded.build_sharded_index`` as it was before it was cut
+    to fit 1B codes a rank: the padded corpus, the padded substrings and
+    the whole table's rows, then a copy of this rank's slices."""
+    from verticut_tpu_torch.index import directory as dir_lib
+    from verticut_tpu_torch.index.mih import (entry_block_size,
+                                              entry_row_align, sort_table)
+    from verticut_tpu_torch.search.sharded import _my_tables
+    codes_t = torch.from_numpy(db.view(np.int32))
+    n, w = codes_t.shape
+    blk = entry_block_size(w)
+    n_shards = mesh.shape["shard"]
+    unit = n_shards * entry_row_align(w)
+    n_tot = -(-n // unit) * unit
+    n_pad = n_tot - n
+    pbits = dir_lib.pick_range_pbits(n, cfg.s_bits, blk)
+    padded = torch.cat([codes_t, codes_t.new_zeros((n_pad, w))])
+    nb_loc = n_tot // blk // n_shards
+    s0 = mesh.coords[1]
+    rows_t, se_t = [], []
+    for t in _my_tables(mesh, cfg):
+        subs, ids = sort_table(codes_t, t, cfg.s_bits)
+        subs = torch.cat([subs, subs.new_full((n_pad,), -1)])
+        rows = plain_make_entry_rows(ids, padded)
+        rows_t.append(rows[s0 * nb_loc:(s0 + 1) * nb_loc].clone())
+        se_t.append(dir_lib.build_range(subs, cfg.s_bits, pbits=pbits).se)
+    n_loc = n_tot // mesh.n_model
+    c0 = mesh.model_index * n_loc
+    return {"entry_rows": torch.stack(rows_t).numpy(),
+            "se": torch.stack(se_t).numpy(),
+            "codes": padded[c0:c0 + n_loc].numpy(), "n_rows": n_tot}
+
+
+def _builds() -> dict:
+    """Each build case on every rank of its mesh: this rank's slices from
+    ``build_sharded_index`` and from its plain copy."""
+    from verticut_tpu_torch.search.sharded import build_sharded_index
+    out = {}
+    for name, shape, cfg, n in BUILDS:
+        mesh = make_mesh(*shape)
+        if not mesh.member:
+            out[name] = None
+            continue
+        db = make_db(n, seed=n)
+        idx = build_sharded_index(db, cfg, mesh)
+        out[name] = {"new": {"entry_rows": idx.entry_rows.numpy(),
+                             "se": idx.se.numpy(),
+                             "codes": idx.codes.numpy(),
+                             "n_rows": idx.n_rows},
+                     "old": plain_build(db, cfg, mesh)}
+    return out
+
+
+#: the wide-id case: corpus size, query rows (near duplicates, then
+#: uniform codes that reach the scan tier) and search settings
+WIDE_N, WIDE_NEAR, WIDE_FAR = 3000, 24, 8
+WIDE_SCFG = SearchConfig(knn=10, candidate_cap=512)
+#: the spans the sharded path records under a profiler
+SHARDED_SPANS = ("mih.sharded.step", "mih.fetch_score", "mih.sharded.scan",
+                 "mih.sharded.gather_result", "coll.all_gather",
+                 "coll.all_reduce")
+
+
+def wide_db():
+    """The wide-id case's corpus and queries."""
+    db = make_db(WIDE_N, seed=17, clustered=True)
+    q = np.concatenate([flipped_rows(db, WIDE_NEAR, 19),
+                        codes.random_codes(23, WIDE_FAR, 128)])
+    return db, q
+
+
+def _wide_ids() -> dict:
+    """The inline sharded engine at 4x1x1 with the packed selections
+    refused, as ids of 1B codes refuse them: the ``_pos`` strips and the
+    dedup merge. Returns per rank the answers of two calls, one under a
+    CPU profiler, with the profiler's range names and what the counters
+    added over both calls."""
+    from verticut_tpu_torch.ops import topk
+    from verticut_tpu_torch.search import sharded
+    from verticut_tpu_torch.utils import timer
+    mesh = make_mesh(4, 1, 1)
+    if not mesh.member:
+        return {"wide": None}
+    db, q = wide_db()
+    idx = sharded.build_sharded_index(db, CFG4, mesh)
+    can_pack, packed_calls = topk.can_pack, []
+
+    def refuse(*args):
+        packed_calls.append(can_pack(*args))
+        return False
+
+    topk.can_pack = refuse
+    try:
+        before = timer.counters()
+        first = as_np(sharded.sharded_mih_search(idx, q, WIDE_SCFG))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            second = as_np(sharded.sharded_mih_search(idx, q, WIDE_SCFG))
+        added = timer.counters(since=before)
+    finally:
+        topk.can_pack = can_pack
+    return {"wide": {
+        "first": first, "second": second, "packed_calls": packed_calls,
+        "counters": {k: v for k, v in added.items()
+                     if k.startswith(("coll.", "mih.sharded_"))},
+        "spans": sorted({e.name() for e in prof.profiler.kineto_results
+                         .events()} & set(SHARDED_SPANS))}}
 
 
 def _collectives(mesh) -> dict:

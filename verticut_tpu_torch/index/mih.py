@@ -159,28 +159,36 @@ def make_entry_idrows(sorted_ids: torch.Tensor) -> torch.Tensor:
     return _padded_ids(sorted_ids, npad).reshape(-1, ID_ROW_BLOCK)
 
 
-def make_entry_rows(sorted_ids: torch.Tensor, codes: torch.Tensor
+def make_entry_rows(sorted_ids: torch.Tensor, codes: torch.Tensor,
+                    start: int = 0, out: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Blocked word-major ``(id, code)`` rows, padded as the JAX package's
     native build pads them (``index/build_native._host_entry_rows``):
     entries to a multiple of ``entry_row_align(W)``, pad ids -1. Assembled
     :data:`ASSEMBLY_CHUNK` entries at a time into the output, so no
-    ``[Npad, RW]`` copy of the table exists besides the rows themselves."""
+    ``[Npad, RW]`` copy of the table exists besides the rows themselves.
+
+    ``out`` (``int32[R, blk*RW]``) takes only rows ``start / blk`` to
+    ``start / blk + R`` of the padded table, written in place (one shard's
+    slice; ``start`` a multiple of the block). Entries past the sorted ids
+    are pads, however far ``out`` reaches."""
     n, w = codes.shape
     rw = _row_width(w)
     blk = entry_block_size(w)
-    align = entry_row_align(w)
-    npad = -(-max(n, 1) // align) * align
-    ids = _padded_ids(sorted_ids, npad)
-    out = torch.empty((npad // blk, blk * rw), dtype=torch.int32,
-                      device=codes.device)
+    if out is None:
+        align = entry_row_align(w)
+        npad = -(-max(n, 1) // align) * align
+        out = torch.empty(((npad - start) // blk, blk * rw),
+                          dtype=torch.int32, device=codes.device)
+    stop = start + out.shape[0] * blk
     ch = ASSEMBLY_CHUNK // blk * blk
-    for c0 in range(0, npad, ch):
-        idc = ids[c0:c0 + ch]
+    for c0 in range(start, stop, ch):
+        c1 = min(c0 + ch, stop)
+        idc = _padded_ids(sorted_ids[c0:c1], c1 - c0)
         g = codes[idc.clamp(min=0).long()]
         g[idc < 0] = 0
         rows = torch.cat([idc[:, None], g], dim=1)          # [ch, rw]
-        out[c0 // blk:(c0 + idc.shape[0]) // blk] = rows.reshape(
+        out[(c0 - start) // blk:(c1 - start) // blk] = rows.reshape(
             -1, blk, rw).transpose(1, 2).reshape(-1, blk * rw)
     return out
 

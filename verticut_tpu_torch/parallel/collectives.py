@@ -19,6 +19,11 @@ of that group, in the same order:
 gloo reduces neither ``bool`` nor ``uint32`` tensors, so flags travel as
 int32 (as the reference's ``reduce_any`` sums them) and codes as the
 port's int32 bit patterns.
+
+Each collective runs in a span named by its operation
+(``coll.all_gather``, ``coll.all_reduce``) and adds 1 to the counter
+``coll.calls`` and this rank's input bytes to ``coll.bytes``, from the
+shape the host holds (:mod:`verticut_tpu_torch.utils.timer`).
 """
 
 from __future__ import annotations
@@ -28,14 +33,30 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from verticut_tpu_torch.utils.timer import count, span
+
+
+def _counted(x: torch.Tensor) -> None:
+    count("coll.calls")
+    count("coll.bytes", x.numel() * x.element_size())
+
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """``[...] -> [D, ...]``, stacked in the group's rank order."""
     x = x.contiguous()
     n = dist.get_world_size(group)
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    dist.all_gather(list(out.unbind(0)), x, group=group)
+    with span("coll.all_gather"):
+        _counted(x)
+        dist.all_gather(list(out.unbind(0)), x, group=group)
     return out
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """Reduce ``x`` across the group, in place."""
+    with span("coll.all_reduce"):
+        _counted(x)
+        dist.all_reduce(x, op=op, group=group)
 
 
 def _flatten_devices(g: torch.Tensor) -> torch.Tensor:
@@ -70,21 +91,21 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_any(flag: torch.Tensor, group) -> torch.Tensor:
     """Logical OR of a boolean tensor across the group."""
     x = flag.to(torch.int32)
-    dist.all_reduce(x, group=group)
+    _all_reduce(x, group)
     return x > 0
 
 
 def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum across the group (a new tensor; ``x`` is left as it is)."""
     x = x.clone()
-    dist.all_reduce(x, group=group)
+    _all_reduce(x, group)
     return x
 
 
 def reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """Maximum across the group (a new tensor)."""
     x = x.clone()
-    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    _all_reduce(x, group, dist.ReduceOp.MAX)
     return x
 
 

@@ -58,6 +58,14 @@ real row's slot (ROADMAP.md Queue 3); the port never makes a pad a
 candidate. Where the reference's fallback scans the whole batch and keeps
 the unfinished rows, the port scans only those rows (padded to the query
 axis): the scan is exact per row, so the answers are the same.
+
+Spans (:func:`~verticut_tpu_torch.utils.timer.span`), for both engines:
+``mih.sharded.step`` around each radius step (``mih.fetch_score`` a table
+inside the inline one), ``mih.sharded.scan`` around the scan tier and the
+fallback, ``mih.sharded.gather_result`` around the results' gather; the
+collectives add their own (:mod:`verticut_tpu_torch.parallel.collectives`).
+Counters: ``mih.sharded_batches`` and ``mih.sharded_queries`` for each
+client batch (:func:`count_batch`).
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from verticut_tpu_torch.search.single import (
     OVERFLOW_SCAN_MAX_N, SCAN_DOMINANCE_MIN_NQ, SearchResult, SearchState,
     _cap_for_radius, _flip_masks, _radius_schedule, _stage_shift,
     effective_scfg, init_state, run_pipeline)
+from verticut_tpu_torch.utils.timer import count, span
 
 
 @dataclasses.dataclass
@@ -144,9 +153,13 @@ def build_sharded_index(codes_arr, cfg: MIHConfig, mesh: Mesh,
     whole corpus (numpy codes or a tensor). The per-table sort is the
     single-device build's (``index.mih``); distribution is layout only:
     contiguous row ranges of each sorted table go to the ``shard`` axis.
-    Padded entries carry substring key 0xFFFFFFFF (they sort last, into the
-    last prefix's range) and id -1, which every consumer treats as
-    invalid."""
+    Padded entries carry substring key 0xFFFFFFFF (they sort last) and id
+    -1, which every consumer treats as invalid.
+
+    Besides the corpus, the build holds one table's sort at a time, and
+    makes only this rank's rows, in place, and its slice of the codes: no
+    padded copy of the corpus or of a table (at 1B codes and one table a
+    rank, a peak of the corpus and one sort's transients)."""
     mesh_tables(mesh, cfg)
     _check_member(mesh)
     codes = as_codes(codes_arr, mesh.device).contiguous()
@@ -158,27 +171,36 @@ def build_sharded_index(codes_arr, cfg: MIHConfig, mesh: Mesh,
     # every shard slice must hold whole blocks
     unit = n_shards * entry_row_align(w)
     n_tot = -(-max(n, 1) // unit) * unit
-    n_pad = n_tot - n
     pbits = pbits or dir_lib.pick_range_pbits(n, cfg.s_bits, blk)
-    codes_padded = torch.cat([codes, codes.new_zeros((n_pad, w))])
+    tables = _my_tables(mesh, cfg)
     nb_loc = n_tot // blk // n_shards
-    s0 = mesh.coords[1]
-    rows_t, se_t = [], []
-    for t in _my_tables(mesh, cfg):
-        # the pads' keys are the largest and their positions the last, so
-        # the padded sort is the real entries' stable sort, then the pads
+    entry_rows, se_t = None, []
+    for tt, t in enumerate(tables):
         sorted_subs, sorted_ids = sort_table(codes, t, cfg.s_bits)
-        subs = torch.cat([sorted_subs, sorted_subs.new_full((n_pad,), -1)])
-        rows = make_entry_rows(sorted_ids, codes_padded)
-        rows_t.append(rows[s0 * nb_loc:(s0 + 1) * nb_loc].clone())
-        se_t.append(dir_lib.build_range(subs, cfg.s_bits, pbits=pbits).se)
-        del rows, subs, sorted_subs, sorted_ids
+        se = dir_lib.build_range(sorted_subs, cfg.s_bits, pbits=pbits).se
+        del sorted_subs
+        # the pads' keys are the largest and their positions the last, so
+        # the padded sort is the real entries' stable sort, then the pads:
+        # in the last prefix's range where a substring is a whole word,
+        # past every range where it is narrower
+        if cfg.s_bits == 32:
+            se[-1, 1] = n_tot
+        se_t.append(se)
+        if entry_rows is None:
+            # after the first sort: its transients and the rows are the
+            # two peaks of the build, and they need not meet
+            entry_rows = torch.empty((len(tables), nb_loc, blk * (1 + w)),
+                                     dtype=torch.int32, device=codes.device)
+        make_entry_rows(sorted_ids, codes, out=entry_rows[tt],
+                        start=mesh.coords[1] * nb_loc * blk)
+        del sorted_ids
     n_loc = n_tot // mesh.n_model
-    c0 = mesh.model_index * n_loc
+    c0 = min(mesh.model_index * n_loc, n)
+    real = codes[c0:min(c0 + n_loc, n)]
     return ShardedMIHIndex(
-        cfg=cfg, mesh=mesh, n=n, n_rows=n_tot,
-        entry_rows=torch.stack(rows_t), se=torch.stack(se_t),
-        codes=codes_padded[c0:c0 + n_loc].clone())
+        cfg=cfg, mesh=mesh, n=n, n_rows=n_tot, entry_rows=entry_rows,
+        se=torch.stack(se_t),
+        codes=torch.cat([real, real.new_zeros((n_loc - real.shape[0], w))]))
 
 
 # --------------------------------------------------------------------------
@@ -252,8 +274,9 @@ def sharded_radius_step(mesh: Mesh, entry_rows, se, queries, q_subs, masks,
             n_nonempty += (counts > 0).sum(dim=-1, dtype=torch.int32)
         blk_id, lo, hi, _nch, ovf = chunks_lib.chunk_descriptors(
             ls, counts, blk=blk, chb=chb, n_blocks=nbl)
-        d, i = chunks_lib.fetch_score_blocks(entry_rows[tt], blk_id, lo, hi,
-                                             queries, blk=blk)
+        with span("mih.fetch_score"):
+            d, i = chunks_lib.fetch_score_blocks(entry_rows[tt], blk_id, lo,
+                                                 hi, queries, blk=blk)
         total_c += (hi - lo).sum(dim=-1, dtype=torch.int32)
         overflow_l |= ovf
         # per-table pre-merge before the collective: ids are unique within
@@ -296,10 +319,11 @@ def _device_linear(mesh: Mesh, codes_loc, queries, k: int, n_loc: int,
     on every rank of the plane."""
     base = mesh.model_index * n_loc
     r = min(max(n_total - base, 0), n_loc)
-    d, i = linear_search(queries, codes_loc[:r], k, method="blockmin")
-    gd, gi = collectives.gather_candidates(
-        d, torch.where(i >= 0, i + base, -1), mesh.model_group)
-    return topk.table_topk_pos(gd, gi, k)
+    with span("mih.sharded.scan"):
+        d, i = linear_search(queries, codes_loc[:r], k, method="blockmin")
+        gd, gi = collectives.gather_candidates(
+            d, torch.where(i >= 0, i + base, -1), mesh.model_group)
+        return topk.table_topk_pos(gd, gi, k)
 
 
 def _local_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -397,11 +421,12 @@ def run_fused(step_fn, scan_fn, queries, q_subs, scfg: SearchConfig, *,
 def _step(index: ShardedMIHIndex, scfg: SearchConfig, q, qs, masks, state,
           r: int, cap: int) -> SearchState:
     cfg = index.cfg
-    return sharded_radius_step(
-        index.mesh, index.entry_rows, index.se, q, qs, masks, state,
-        radius=r, n_tables=cfg.n_tables, knn=scfg.knn, cap=cap,
-        approximate=scfg.approximate, s_bits=cfg.s_bits, pbits=index.pbits,
-        n_rows=index.n_rows, n_total=index.n)
+    with span("mih.sharded.step"):
+        return sharded_radius_step(
+            index.mesh, index.entry_rows, index.se, q, qs, masks, state,
+            radius=r, n_tables=cfg.n_tables, knn=scfg.knn, cap=cap,
+            approximate=scfg.approximate, s_bits=cfg.s_bits,
+            pbits=index.pbits, n_rows=index.n_rows, n_total=index.n)
 
 
 def _stage_cap(index, scfg: SearchConfig, group, blk: int,
@@ -461,12 +486,13 @@ def gather_result(mesh: Mesh, state: SearchState, k: int) -> dict:
     """Every query slice's final state, all-gathered over the query axis
     into one host row per query of the batch: the per-query fields of
     :func:`search.single._apply_fallbacks`."""
-    cols = torch.stack([state.radius, state.overflow.to(torch.int32),
-                        (~state.done).to(torch.int32), state.n_probes,
-                        state.n_nonempty, state.n_cands], dim=1)
-    g = collectives.gather_rows(
-        torch.cat([state.pool_dist[:, :k], state.pool_id[:, :k], cols], 1),
-        mesh.query_group).cpu()
+    with span("mih.sharded.gather_result"):
+        cols = torch.stack([state.radius, state.overflow.to(torch.int32),
+                            (~state.done).to(torch.int32), state.n_probes,
+                            state.n_nonempty, state.n_cands], dim=1)
+        g = collectives.gather_rows(
+            torch.cat([state.pool_dist[:, :k], state.pool_id[:, :k], cols],
+                      1), mesh.query_group).cpu()
     c = g[:, 2 * k:]
     return dict(dists=g[:, :k].clone(), ids=g[:, k:2 * k].clone(),
                 radius=c[:, 0].clone(), overflow=c[:, 1] != 0,
@@ -516,6 +542,15 @@ def finish(index, queries, scfg: SearchConfig, cap: Optional[int], search,
                         n_cands=row["n_cands"])
 
 
+def count_batch(queries, cap: Optional[int]) -> None:
+    """Count a client's batch (``cap`` None; the host retry's re-run
+    passes its raised cap and adds none): ``mih.sharded_batches`` and
+    ``mih.sharded_queries``."""
+    if cap is None:
+        count("mih.sharded_batches")
+        count("mih.sharded_queries", queries.shape[0])
+
+
 def prepare_queries(index, queries) -> torch.Tensor:
     """The batch as an int32 tensor on the rank's device, checked against
     the code width and the query axis."""
@@ -538,6 +573,7 @@ def sharded_mih_search(index: ShardedMIHIndex, queries,
     saturated (the reference's sharded result carries them whole)."""
     scfg = effective_scfg(scfg)
     queries = prepare_queries(index, queries)
+    count_batch(queries, _cap)
     q_loc = _local_rows(index.mesh, queries)
     state = _sharded_fused(index, q_loc, scfg, _cap) if scfg.fused else None
     if state is None:

@@ -60,11 +60,13 @@ from verticut_tpu_torch.parallel import collectives
 from verticut_tpu_torch.parallel.mesh import Mesh
 from verticut_tpu_torch.search.sharded import (
     _check_member, _device_linear, _local_rows, _my_tables,
-    _reduce_stats, _stop, finish, fused_schedule, gather_result,
-    mesh_tables, prepare_queries, run_fused, sharded_linear_search)
+    _reduce_stats, _stop, count_batch, finish, fused_schedule,
+    gather_result, mesh_tables, prepare_queries, run_fused,
+    sharded_linear_search)
 from verticut_tpu_torch.search.single import (SearchResult, SearchState,
                                               _cap_for_radius, _flip_masks,
                                               effective_scfg)
+from verticut_tpu_torch.utils.timer import span
 
 #: rows of a rank's code slice streamed per all_gather of the build
 BUILD_CHUNK = 1 << 20
@@ -464,6 +466,7 @@ def sharded_compact_search(index: ShardedCompactIndex, queries,
     no enumerable stage the exact scan answers everything."""
     scfg = effective_scfg(scfg)
     queries = prepare_queries(index, queries)
+    count_batch(queries, _cap)
     cfg, mesh = index.cfg, index.mesh
     k = scfg.knn
     schedule = fused_schedule(scfg, cfg, index.n, index.pbits)
@@ -478,11 +481,12 @@ def sharded_compact_search(index: ShardedCompactIndex, queries,
     n_loc = index.codes.shape[0]
 
     def step_fn(i, r, cap, cq, cqs, cs):
-        return sharded_compact_radius_step(
-            mesh, index.idrows, index.se, index.codes, cq, cqs, masks[i], cs,
-            radius=r, n_tables=cfg.n_tables, knn=k, cap=cap,
-            approximate=scfg.approximate, s_bits=cfg.s_bits,
-            pbits=index.pbits)
+        with span("mih.sharded.step"):
+            return sharded_compact_radius_step(
+                mesh, index.idrows, index.se, index.codes, cq, cqs, masks[i],
+                cs, radius=r, n_tables=cfg.n_tables, knn=k, cap=cap,
+                approximate=scfg.approximate, s_bits=cfg.s_bits,
+                pbits=index.pbits)
 
     def scan_fn(sq):
         return _device_linear(mesh, index.codes, sq, k, n_loc, index.n)
