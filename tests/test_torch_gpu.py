@@ -27,8 +27,9 @@ from verticut_tpu_torch.kernels import fetch_score as kf
 from verticut_tpu_torch.kernels import pairwise as kp
 from verticut_tpu_torch.search import (linear_search, mih_search,
                                        mih_search_dispatch,
-                                       mih_search_finalize)
+                                       mih_search_finalize, single)
 from verticut_tpu_torch.search.linear import METHODS
+from verticut_tpu_torch.utils import timer
 
 pytestmark = pytest.mark.gpu
 
@@ -223,6 +224,38 @@ def test_mih_search_on_card_matches_oracle(cuda_device, uniform, fused):
     assert torch.equal(res.dists, od.cpu()) and torch.equal(res.ids, oi.cpu())
     if uniform:              # the scan tier or the fallback ran the kernel
         assert kb.launches > before
+
+
+def test_scan_tier_on_card_runs_its_stragglers_rounded(cuda_device,
+                                                       monkeypatch):
+    """A 1M corpus of tight clusters and a batch of 1,000 one-bit
+    near-duplicates with 300 uniform codes: the uniform rows are the
+    stragglers, so the scan tier runs once, on their count rounded up to
+    blockmin's query tile (the ladder's rung would be 512), and the
+    answers equal the popcount oracle's."""
+    packed = codes.clustered_codes(4, 1_000_000, 128, n_clusters=5000,
+                                   flip_p=0.005)
+    q = np.concatenate([packed[::1000] ^ np.uint32(1),
+                        codes.random_codes(11, 300, 128)])
+    index = build_index(packed, MIHConfig(), device=cuda_device)
+    ran = []
+    scan = single.scan_blockmin
+
+    def counted(queries, *a, **kw):
+        ran.append(queries.shape[0])
+        return scan(queries, *a, **kw)
+
+    monkeypatch.setattr(single, "scan_blockmin", counted)
+    before = timer.counters()
+    res = mih_search(index, q, SearchConfig(knn=10))
+    c = timer.counters(since=before)
+    od, oi = linear_search(q, index.codes, 10, method="popcount")
+    assert torch.equal(res.dists, od.cpu()) and torch.equal(res.ids, oi.cpu())
+    n_sc = c["mih.scan_rows"]
+    assert 129 <= n_sc <= 1024
+    rows = kb.QUERY_TILE * -(-n_sc // kb.QUERY_TILE)
+    assert ran == [rows] and c["mih.scan_budget_rows"] == rows
+    assert c.get("mih.fallback_rows", 0) == 0
 
 
 @pytest.mark.parametrize("directory,m", [("auto", 8), ("sorted", 4),

@@ -16,6 +16,7 @@ import torch
 from verticut_tpu_torch import bench, breakdown, codes
 from verticut_tpu_torch import bits as bits_lib
 from verticut_tpu_torch.config import SearchConfig
+from verticut_tpu_torch.kernels import blockmin
 from verticut_tpu_torch.search import (mih_search, mih_search_dispatch,
                                        mih_search_finalize, single)
 from verticut_tpu_torch.utils import timer
@@ -204,6 +205,85 @@ def test_scan_budget_rows_are_the_rows_the_scan_tier_ran(monkeypatch, index,
         assert c.get("mih.dominance_trips", 0) == 0
     assert c.get("mih.fallback_rows", 0) == 0
     assert res.dists.shape == (q.shape[0], scfg.knn)
+
+
+def _ladder_scan(full, queries, flag, scan_budget, scan_fn, knn, pool_size):
+    """The scan tier as a ladder of ``scan_budget * 8^i`` rows, the first
+    rung that covers the flagged rows (the reference's static shapes)."""
+    nq = queries.shape[0]
+    n_sc = int(flag.sum())
+    perm = torch.argsort((~flag).to(torch.int32), stable=True)
+    budgets = [min(scan_budget, nq)]
+    while budgets[-1] < nq:
+        budgets.append(min(nq, budgets[-1] * 8))
+    for bi, budget in enumerate(budgets):
+        run = n_sc > (0 if bi == 0 else budgets[bi - 1])
+        if budget < nq:
+            run = run and n_sc <= budget
+        if not run:
+            continue
+        sel = perm[:budget]
+        flag_sel = flag[sel]
+        d, i = scan_fn(queries[sel])
+        d = torch.nn.functional.pad(d, (0, pool_size - knn),
+                                    value=single.topk.INF_DIST)
+        i = torch.nn.functional.pad(i, (0, pool_size - knn),
+                                    value=single.topk.INVALID_ID)
+        full = full._replace(
+            pool_dist=single._blend(full.pool_dist, sel, flag_sel, d),
+            pool_id=single._blend(full.pool_id, sel, flag_sel, i),
+            done=single._blend(full.done, sel, flag_sel,
+                               torch.ones_like(flag_sel)),
+            overflow=single._blend(full.overflow, sel, flag_sel,
+                                   torch.zeros_like(flag_sel)))
+    return full
+
+
+@pytest.mark.parametrize("overflow_to_scan", [False, True])
+@pytest.mark.parametrize("n_sc", [0, 1, 127, 128, 129, 1024, 1025, 8192])
+def test_the_scan_tier_runs_its_stragglers_rounded_to_the_query_tile(
+        n_sc, overflow_to_scan):
+    nq, knn, pool_size = 8192, 4, 6
+    scan_budget = min(nq, max(64, nq // 64))
+    gen = torch.Generator().manual_seed(n_sc)
+    queries = torch.randint(-2**31, 2**31 - 1, (nq, 4), generator=gen,
+                            dtype=torch.int32)
+    flag = torch.zeros(nq, dtype=torch.bool)
+    flag[torch.randperm(nq, generator=gen)[:n_sc]] = True
+    # with overflow_to_scan, every other flagged row finished but
+    # overflowed: the scan takes it as it takes an unfinished one
+    ovf = flag & (torch.rand(nq, generator=gen) < 0.5) & overflow_to_scan
+    state0 = single.init_state(nq, pool_size)._replace(
+        pool_dist=torch.randint(0, 129, (nq, pool_size), generator=gen,
+                                dtype=torch.int32),
+        pool_id=torch.randint(0, 1 << 20, (nq, pool_size), generator=gen,
+                              dtype=torch.int32),
+        done=~flag | ovf, overflow=ovf,
+        radius=torch.randint(0, 5, (nq,), generator=gen, dtype=torch.int32),
+        n_cands=torch.randint(0, 1000, (nq,), generator=gen,
+                              dtype=torch.int32))
+    ran = []
+
+    def scan_fn(sq):
+        # a row's answer depends on that row alone, as an exact scan's does
+        ran.append(sq.shape[0])
+        d = (sq[:, :1] & 127) + torch.arange(knn, dtype=torch.int32)
+        return d, sq[:, 1:2] ^ torch.arange(knn, dtype=torch.int32)
+
+    got, c = counted(lambda: single.run_pipeline(
+        lambda i, r, cap, q, qs, s: s, scan_fn, queries, queries, state0,
+        schedule=((0, (0,)),), caps=(64,), batch_caps=(nq,), knn=knn,
+        pool_size=pool_size, scan_budget=scan_budget,
+        overflow_to_scan=overflow_to_scan))
+    rows = min(nq, blockmin.QUERY_TILE * -(-n_sc // blockmin.QUERY_TILE))
+    assert ran == ([rows] if n_sc else [])
+    assert c.get("mih.scan_budget_rows", 0) == rows
+    assert c["mih.scan_rows"] == n_sc
+    want = _ladder_scan(state0, queries, flag, scan_budget, scan_fn, knn,
+                        pool_size)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.done.all()) and not bool(got.overflow.any())
 
 
 @pytest.mark.parametrize("fused", [True, False])

@@ -39,6 +39,10 @@ NAME = "blockmin"
 SOURCE = _build.source(NAME)
 #: the kernel's instances, as :func:`instance` names them
 INSTANCES: Tuple[str, ...] = ("tensor", "generic")
+#: queries a thread block of the tensor-core instance takes (``kTcQ`` in
+#: ``csrc/blockmin.cu``; the two must stay in step): a launch costs the
+#: same for any query count up to the next multiple of it
+QUERY_TILE = 128
 
 #: kernel launches made by :func:`blockmin`, either instance (never by the
 #: twin), and the same launches by instance

@@ -380,8 +380,8 @@ def _fused_budgets(scfg: SearchConfig, n: int, nq_loc: int, n_stages: int):
                                                  + 2 * (i - 1)))
         for i in range(n_stages))
     scan_budget = min(nq_loc, max(64, nq_loc // 64))
-    # same exact-mode ladder policy as the single-device driver: overflow
-    # rows ride the scan ladder on small corpora; scan-dominated batches
+    # same exact-mode tier policy as the single-device driver: overflow
+    # rows ride the scan tier on small corpora; scan-dominated batches
     # skip stages 2+
     o2s = (scfg.overflow_to_scan and scan_budget > 0
            and not scfg.approximate and n <= OVERFLOW_SCAN_MAX_N)

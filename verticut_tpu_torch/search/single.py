@@ -10,7 +10,7 @@ keeps the table's top-P, merges the strips into the pool and applies the
 stop rule: the exact MIH rule, or in approximate mode a full
 ``k * approximate_factor`` pool.
 :func:`run_pipeline` drives the stages with compaction to shrinking batch
-budgets, an overflow retry ladder and a brute-force scan ladder (the
+budgets, an overflow retry ladder and a brute-force scan tier (the
 fused driver, the default); :func:`_mih_search_loop` runs one stage at a
 time and compacts between them (the loop driver, ``fused=False``, and the
 fall-through when no radius stage fits ``fused_max_masks``).
@@ -59,6 +59,7 @@ from verticut_tpu_torch.codes import hamming_distance
 from verticut_tpu_torch.config import MIHConfig, SearchConfig
 from verticut_tpu_torch.index.directory import RangeDirectory
 from verticut_tpu_torch.index.mih import MIHIndex, MIHTable
+from verticut_tpu_torch.kernels.blockmin import QUERY_TILE
 from verticut_tpu_torch.ops import chunks as chunks_lib
 from verticut_tpu_torch.ops import enumeration, topk
 from verticut_tpu_torch.ops.hamming import scan_blockmin
@@ -70,10 +71,10 @@ from verticut_tpu_torch.utils.timer import count, held_counts, span
 RANGE_BLK = 32
 
 # Smallest batch that turns on the scan-dominance stage skip (diverts
-# scan-dominated batches from deep enumeration to the scan ladder).
+# scan-dominated batches from deep enumeration to the scan tier).
 SCAN_DOMINANCE_MIN_NQ = 1024
 
-# Largest corpus whose overflow retries may ride the scan ladder
+# Largest corpus whose overflow retries may ride the scan tier
 # (overflow_to_scan): above it one scan of the corpus costs more than a
 # capped re-enumeration (the reference's rule).
 OVERFLOW_SCAN_MAX_N = 32_000_000
@@ -372,21 +373,28 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                  scan_budget: int = 0, scan_dominance: int = 0,
                  overflow_to_scan: bool = False) -> SearchState:
     """Stages with compaction, then the overflow retry ladder, then the
-    scan ladder. ``step_fn(i, radius, cap, queries, q_subs, state)`` is one
+    scan tier. ``step_fn(i, radius, cap, queries, q_subs, state)`` is one
     radius step; ``scan_fn(queries) -> (dists [B, knn], ids [B, knn])`` the
-    exact scan. ``scan_dominance`` > 0 skips every stage after the first
-    when at least that many queries are still active after it.
+    exact scan. ``scan_budget`` > 0 turns the scan tier on: one call of
+    ``scan_fn`` on the unfinished rows, their count rounded up to
+    blockmin's query tile (:data:`kernels.blockmin.QUERY_TILE`) and cut to
+    the batch, the rounding's rows taken from the finished ones; only the
+    unfinished rows take its answers. The reference runs a static ladder
+    of ``scan_budget * 8^i`` rows there, as XLA needs fixed shapes; the
+    scan is exact per row, so the answers are the same.
+    ``scan_dominance`` > 0 skips every stage after the first when at
+    least that many queries are still active after it.
     ``overflow_to_scan`` sends overflowed-but-finished rows to the scan
-    ladder with the stragglers (one ladder, not two); the caller then
+    tier with the stragglers (one tier, not two ladders); the caller then
     passes no retry caps.
 
     Spans (:func:`~verticut_tpu_torch.utils.timer.span`): ``mih.step.r<r>``
     around each radius step, ``mih.gate`` around each host read that
     decides a branch, ``mih.compact``, ``mih.retry`` and ``mih.scan``
-    around the compaction and the two ladders. Counters: the rows of each
-    stage (``mih.stage_rows.r<r>``), ``mih.stages_skipped``,
-    ``mih.dominance_trips``, and the rows flagged for and run by each
-    ladder (``mih.retry_rows``, ``mih.retry_budget_rows``,
+    around the compaction, the retry ladder and the scan tier. Counters:
+    the rows of each stage (``mih.stage_rows.r<r>``),
+    ``mih.stages_skipped``, ``mih.dominance_trips``, and the rows flagged
+    for and run by each tier (``mih.retry_rows``, ``mih.retry_budget_rows``,
     ``mih.scan_rows``, ``mih.scan_budget_rows``)."""
     nq = queries.shape[0]
     dev = queries.device
@@ -422,7 +430,7 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                 if nb < cur_q.shape[0]:
                     # stable: active rows first, each group in row order;
                     # actives past the budget stay undone in `full` and
-                    # are resolved by the scan ladder or the fallbacks
+                    # are resolved by the scan tier or the fallbacks
                     with span("mih.compact"):
                         perm = torch.argsort(cur_state.done.to(torch.int32),
                                              stable=True)
@@ -477,8 +485,8 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
 
     if scan_budget and scan_fn is not None:
         with span("mih.scan"):
-            # tiered scan of the unfinished rows: exactly the first tier
-            # whose budget covers the straggler count runs
+            # one scan of the unfinished rows, rounded up to blockmin's
+            # query tile: the kernel runs the rounding's rows for free
             flag = ~full.done
             if overflow_to_scan:
                 # the scan is exact, so it supersedes any clipped pool; the
@@ -487,18 +495,12 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                 flag = flag | full.overflow
             n_sc = int(flag.sum())
             count("mih.scan_rows", n_sc)
-            perm = torch.argsort((~flag).to(torch.int32), stable=True)
-            budgets = [min(scan_budget, nq)]
-            while budgets[-1] < nq:
-                budgets.append(min(nq, budgets[-1] * 8))
-            for bi, budget in enumerate(budgets):
-                run = n_sc > (0 if bi == 0 else budgets[bi - 1])
-                if budget < nq:
-                    run = run and n_sc <= budget
-                if not run:
-                    continue
-                count("mih.scan_budget_rows", budget)
-                sel = perm[:budget]
+            if n_sc:
+                rows = min(nq, -(-n_sc // QUERY_TILE) * QUERY_TILE)
+                count("mih.scan_budget_rows", rows)
+                # stable: the flagged rows first, then finished ones
+                perm = torch.argsort((~flag).to(torch.int32), stable=True)
+                sel = perm[:rows]
                 flag_sel = flag[sel]
                 d, i = scan_fn(queries[sel])
                 if pool_size > knn:
@@ -795,7 +797,7 @@ def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
                scan_dominance: Optional[int] = None) -> torch.Tensor:
     """The whole schedule through :func:`run_pipeline`, as the packed
     result row. The keywords switch pieces off for the profiling tools
-    (``tools/_profile.fused_variant``): ``scan`` the scan ladder, ``retry``
+    (``tools/_profile.fused_variant``): ``scan`` the scan tier, ``retry``
     the overflow retry ladder; ``scan_dominance`` replaces the dominance
     gate's threshold (by default ``nq // 2`` in exact mode from
     :data:`SCAN_DOMINANCE_MIN_NQ` queries, else 0)."""
