@@ -1,8 +1,8 @@
-"""The port's benchmark, oracle drive and time breakdown
+"""The tools' bench helpers, oracle drive and time breakdown
 (verticut_tpu_torch.bench, .oracle_drive, .breakdown) at a small size on
 the CPU: their cell functions run end to end and every oracle check
-passes; their queries are the reference bench's; their entry points
-refuse to run without CUDA."""
+passes; their queries are the reference bench's; the entry points refuse
+to run without CUDA."""
 
 import os
 import subprocess
@@ -46,19 +46,21 @@ def test_perturbed_queries_are_the_reference_bench_queries():
 
 
 @pytest.mark.parametrize("device_build_min", [10_000, bench.DEVICE_BUILD_MIN])
-def test_bench_runs_on_cpu(device_build_min):
-    """Both branches of the corpus (made on the device, and on the host),
-    the headline pipeline, the oracle cell, the k = 100 and uniform
-    cells."""
-    rec = bench.run(20_000, 256, 10, CPU, oracle_nq=64, cells=True,
-                    device_build_min=device_build_min, n_batches=4,
-                    latency_runs=1)
-    x = rec["extra"]
-    assert rec["metric"] == "mih_exact_qps_per_chip" and rec["value"] > 0
-    assert bench.oracle_ok(x) and x["oracle_queries"] == 64
-    assert x["layout"] == "inline" and x["n_codes"] == 20_000
-    assert x["k100_qps"] > 0 and x["uniform_q_qps"] > 0
-    assert x["uniform_mean_radius"] >= 1
+def test_make_index_serves_a_cell_equal_to_the_oracle(device_build_min):
+    """Both branches of the corpus (made on the device, and on the host):
+    the index, a cell's single and pipelined batches, and its answers
+    held to the popcount oracle in dists and ids."""
+    from verticut_tpu_torch.config import SearchConfig
+    index, info = bench.make_index(20_000, CPU, device_build_min)
+    assert info["layout"] == "inline" and index.n == 20_000
+    assert info["gen_s"] > 0 and info["build_s"] > 0
+    q = bench.perturbed_queries(np.random.default_rng(0), index.codes, 256)
+    scfg = SearchConfig(candidate_cap=8192, max_enum_radius=5)
+    c = bench.cell(index, q, scfg, n_batches=4, latency_runs=1)
+    assert c["qps"] > 0 and c["handle"].packed.shape == (256, 13)
+    assert bool((c["result"].dists[:, 0] <= 3).all())
+    rec = bench.oracle_check(index, q, scfg, c["result"])
+    assert bench.oracle_ok(rec) and rec["oracle_queries"] == 256
 
 
 def test_pipelined_declines_a_loop_request():
@@ -126,8 +128,7 @@ def test_union_of_intervals():
     assert breakdown._union([(5, 7), (0, 2), (1, 3), (6, 9), (9, 9)]) == 7
 
 
-@pytest.mark.parametrize("module", ["verticut_tpu_torch.bench",
-                                    "verticut_tpu_torch.oracle_drive",
+@pytest.mark.parametrize("module", ["verticut_tpu_torch.oracle_drive",
                                     "chip_smoke",
                                     "verticut_tpu_torch.breakdown"])
 def test_entry_points_refuse_to_run_without_cuda(module):

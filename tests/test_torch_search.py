@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from verticut_tpu import codes as jcodes
 from verticut_tpu.config import MIHConfig, SearchConfig
@@ -553,3 +554,123 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# The tier plans of the benchmark cells' shapes (8,192-query batches, the
+# reference bench's settings), of one approximate batch and of one that
+# sends its overflow to the scan tier: the stages, caps and run_pipeline
+# keywords each engine's fused driver planned before the plan had one
+# home (single._fused_row, and sharded._fused_budgets at a rank's slice).
+# Cases: (n, fetch block, prefix bits, config, stages and plan).
+_BLK = 25         # inline rows of 128-bit codes (entry_block_size(4))
+_STAGES = ((1, (0, 1)), (2, (2,)))
+TIER_PLANS = {
+    "100m-neardup-k10": (100_000_000, _BLK, 24, dict(knn=10), dict(
+        schedule=_STAGES, caps=(1300, 8192), batch_caps=(8192, 512),
+        retry_caps=(2600, 8192), retry_budget=2048, scan_dominance=4096,
+        overflow_to_scan=False)),
+    "100m-neardup-k100": (100_000_000, _BLK, 24, dict(knn=100), dict(
+        schedule=_STAGES, caps=(1300, 8192), batch_caps=(8192, 2048),
+        retry_caps=(2600, 8192), retry_budget=2048, scan_dominance=4096,
+        overflow_to_scan=False)),
+    "100m-uniform-k10": (100_000_000, _BLK, 24, dict(knn=10), dict(
+        schedule=_STAGES, caps=(1300, 8192), batch_caps=(8192, 512),
+        retry_caps=(2600, 8192), retry_budget=2048, scan_dominance=4096,
+        overflow_to_scan=False)),
+    "1b-compact-k10": (1_000_000_000, 32, 24, dict(knn=10), dict(
+        schedule=_STAGES, caps=(4224, 8192), batch_caps=(8192, 512),
+        retry_caps=(8192, 8192), retry_budget=2048, scan_dominance=4096,
+        overflow_to_scan=False)),
+    "1b-four-card-rank-slice": (1_000_000_000, _BLK, 24, dict(knn=10), dict(
+        schedule=_STAGES, caps=(4000, 8192), batch_caps=(8192, 512),
+        retry_caps=(8000, 8192), retry_budget=2048, scan_dominance=4096,
+        overflow_to_scan=False)),
+    "100m-approximate": (100_000_000, _BLK, 24,
+                         dict(knn=10, approximate=True), dict(
+        schedule=((0, (0,)), (1, (1,)), (2, (2,))), caps=(400, 1200, 8192),
+        batch_caps=(8192, 512, 128), retry_caps=(800, 2400, 8192),
+        retry_budget=2048, scan_dominance=0, overflow_to_scan=False)),
+    "20m-overflow-to-scan": (20_000_000, _BLK, 22,
+                             dict(knn=10, overflow_to_scan=True), dict(
+        schedule=_STAGES, caps=(1100, 8192), batch_caps=(8192, 512),
+        retry_caps=None, retry_budget=0, scan_dominance=4096,
+        overflow_to_scan=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(TIER_PLANS))
+def test_tier_plan_of_the_cells(case):
+    from verticut_tpu_torch import config as tconfig
+    from verticut_tpu_torch.index.directory import pick_range_pbits
+    from verticut_tpu_torch.ops import enumeration
+    n, blk, pbits, kw, want = TIER_PLANS[case]
+    cfg = tconfig.MIHConfig(bits=128, n_tables=4)
+    scfg = single.effective_scfg(tconfig.SearchConfig(
+        candidate_cap=8192, max_enum_radius=5, **kw))
+    assert pick_range_pbits(n, cfg.s_bits, blk) == pbits
+    schedule, masks, caps = single.range_stages(scfg, cfg, n, pbits, blk,
+                                                "cpu", fused=True)
+    assert [m.shape[0] for m in masks] == [
+        sum(enumeration.n_masks(pbits, r) for r in g)
+        for _, g in schedule]
+    got = single.tier_plan(scfg, n, 8192, schedule, caps, scan=True)
+    assert dict(schedule=schedule, caps=caps, **got) == want
+
+
+@pytest.mark.parametrize("base_cap, n, rerun_cap, scanned", [
+    (100, 1000, 400, [2, 3]),       # overflowed row 1 re-runs at 4x
+    (300, 1000, 1000, [2, 3]),      # ... held to n
+    (1000, 1000, None, [1, 2, 3]),  # the cap covers n: row 1 is unfinished
+])
+def test_the_host_finish_reruns_overflow_and_scans_unfinished_rows(
+        base_cap, n, rerun_cap, scanned):
+    """``apply_fallbacks`` with a fake re-run and scan: an overflowed
+    finished row re-runs at 4x the cap while the cap is below n, and
+    counts as unfinished once it covers n; unfinished rows (an overflowed
+    one among them) take the scan; the read-amplification stats stay the
+    first run's, and every row re-run or scanned is counted."""
+    from verticut_tpu_torch.utils import timer
+    nq, k = 6, 2
+    t = torch.tensor
+    overflow = t([False, True, False, True, False, False])
+    not_done = t([False, False, True, True, False, False])
+    stats = [torch.arange(nq, dtype=torch.int32) + s for s in (10, 20, 30)]
+    calls = []
+
+    def rerun(idxs, cap):
+        calls.append(("rerun", idxs.tolist(), cap))
+        m = idxs.shape[0]
+        return (torch.full((m, k), 7, dtype=torch.int32),
+                idxs[:, None].repeat(1, k).int() + 100,
+                torch.full((m,), 9, dtype=torch.int32))
+
+    def scan(idxs):
+        calls.append(("scan", idxs.tolist()))
+        m = idxs.shape[0]
+        return (torch.full((m, k), 5, dtype=torch.int32),
+                idxs[:, None].repeat(1, k).int() + 200)
+
+    before = timer.counters()
+    res = single.apply_fallbacks(
+        rerun, scan, n=n, base_cap=base_cap,
+        dists=torch.zeros(nq, k, dtype=torch.int32),
+        ids=torch.zeros(nq, k, dtype=torch.int32),
+        radius=torch.ones(nq, dtype=torch.int32), overflow=overflow,
+        not_done=not_done, n_probes=stats[0], n_nonempty=stats[1],
+        n_cands=stats[2])
+    c = timer.counters(since=before)
+    reran = [1] if rerun_cap else []
+    assert calls == ([("rerun", reran, rerun_cap)] if reran else []) + [
+        ("scan", scanned)]
+    assert c["mih.fallback_rows"] == len(reran) + len(scanned)
+    want_d = torch.zeros(nq, k, dtype=torch.int32)
+    want_i = torch.zeros(nq, k, dtype=torch.int32)
+    want_r = torch.ones(nq, dtype=torch.int32)
+    for i in reran:
+        want_d[i], want_i[i], want_r[i] = 7, 100 + i, 9
+    for i in scanned:
+        want_d[i], want_i[i] = 5, 200 + i
+    assert torch.equal(res.dists, want_d) and torch.equal(res.ids, want_i)
+    assert torch.equal(res.radius, want_r)
+    for got, want in zip((res.n_probes, res.n_nonempty, res.n_cands), stats):
+        assert torch.equal(got, want)

@@ -273,8 +273,7 @@ def test_the_scan_tier_runs_its_stragglers_rounded_to_the_query_tile(
     got, c = counted(lambda: single.run_pipeline(
         lambda i, r, cap, q, qs, s: s, scan_fn, queries, queries, state0,
         schedule=((0, (0,)),), caps=(64,), batch_caps=(nq,), knn=knn,
-        pool_size=pool_size, scan_budget=scan_budget,
-        overflow_to_scan=overflow_to_scan))
+        pool_size=pool_size, overflow_to_scan=overflow_to_scan))
     rows = min(nq, blockmin.QUERY_TILE * -(-n_sc // blockmin.QUERY_TILE))
     assert ran == ([rows] if n_sc else [])
     assert c.get("mih.scan_budget_rows", 0) == rows

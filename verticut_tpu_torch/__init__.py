@@ -11,9 +11,8 @@ only where a scan runs, so importing the package needs no CUDA toolkit.
 Public API: codes, config, index.build_index, index.save_index,
 index.load_index, search.mih_search (and its halves
 search.mih_search_dispatch / search.mih_search_finalize),
-search.linear_search. ``python -m verticut_tpu_torch.bench`` and
-``python -m verticut_tpu_torch.oracle_drive`` run the benchmark and the
-oracle drive on a CUDA card.
+search.linear_search. ``python -m verticut_tpu_torch.oracle_drive`` runs
+the oracle drive on a CUDA card; the benchmark is ``benchmark/``.
 """
 
 __version__ = "0.1.0"

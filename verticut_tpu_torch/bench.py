@@ -1,41 +1,23 @@
-"""The port's benchmark: batched exact MIH K-NN on one CUDA card, under the
-protocol of the reference's ``bench.py``.
+"""The helpers of the port's command-line tools, oracle drive, time
+breakdown and ``chip_smoke.py``: the reference bench's corpus and index
+(:func:`make_index`) and queries (:func:`perturbed_queries`), single and
+pipelined batches (:func:`latency`, :func:`pipelined`, :func:`cell`), the
+popcount-oracle check (:func:`oracle_check`) and the card's name and
+power limit (:func:`card`). The port's benchmark is ``benchmark/``
+(``python3 -m benchmark.run --workload <cell>``).
 
-Run on a machine with an NVIDIA GPU:
-
-    python -m verticut_tpu_torch.bench [N]
-
-It prints one JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
-``extra``) and exits non-zero without CUDA, or when the oracle cell finds a
-wrong answer. ``N``, the corpus size, overrides ``VERTICUT_BENCH_N``
-(``python -m verticut_tpu_torch.bench 1000000000`` serves 1B codes from one
-H100 in the compact layout). Environment, as the reference reads it:
-
-* ``VERTICUT_BENCH_N`` corpus size (1,000,000), ``VERTICUT_BENCH_Q`` batch
-  size (8192), ``VERTICUT_BENCH_K`` k (10);
-* ``VERTICUT_BENCH_ORACLE`` queries held against the popcount oracle, dists
-  and ids (64; 0 turns the cell off);
-* ``VERTICUT_BENCH_CELLS`` "0" skips the k = 100 and uniform-query cells;
-* ``VERTICUT_DEVICE_BUILD_MIN`` corpus size from which the corpus is
-  generated on the card and the flat id columns are dropped (20,000,000).
-
-Protocol: clustered 128-bit codes (``n // 200`` clusters, flip rate
-0.02), ``MIHConfig(bits=128, n_tables=4)``, ``SearchConfig(candidate_cap=
-8192, max_enum_radius=5)``, queries = corpus rows with 3 random bit flips;
-one warm-up batch, three latency batches, then 12 batches through a
-depth-4 ``mih_search_dispatch`` / ``mih_search_finalize`` pipeline (8 for
-the k = 100 and uniform cells). Below ``VERTICUT_DEVICE_BUILD_MIN`` the
-corpus is made on the host (the reference's ``clustered_codes``); from it
-up, on the card (``clustered_codes_device``), with the inline layout while
-its rows fit 10 GiB and the compact one beyond, as the reference picks.
-The cell functions take an explicit ``device``, so they also run on the CPU
-at a small size.
+The corpus is the reference ``bench.py``'s: clustered 128-bit codes
+(``n // 200`` clusters, flip rate 0.02), ``MIHConfig(bits=128,
+n_tables=4)``, made on the host (the reference's ``clustered_codes``)
+below ``device_build_min`` codes and on the card
+(``clustered_codes_device``) from it up, in the inline layout while its
+rows fit 10 GiB and the compact one beyond, as the reference picks. The
+queries are corpus rows with 3 random bit flips. Every helper takes an
+explicit ``device``, so it also runs on the CPU at a small size.
 """
 
 from __future__ import annotations
 
-import json
-import os
 import subprocess
 import sys
 import time
@@ -199,53 +181,6 @@ def cell(index, queries, scfg: SearchConfig, n_batches: int,
             "handle": None if pipe is None else pipe[2]}
 
 
-def run(n: int, q_batch: int, k: int, device, oracle_nq: int = 64,
-        cells: bool = True, device_build_min: int = DEVICE_BUILD_MIN,
-        n_batches: int = 12, latency_runs: int = 3) -> dict:
-    """The whole benchmark on ``device``: the record the JSON line prints,
-    minus the device fields. ``n_batches`` and ``latency_runs`` are the
-    headline cell's; the k = 100 and uniform cells take one latency run
-    and ``min(8, n_batches)`` pipelined batches."""
-    rng = np.random.default_rng(0)
-    index, info = make_index(n, device, device_build_min)
-    queries = perturbed_queries(rng, index.codes, q_batch)
-    scfg = SearchConfig(knn=k, candidate_cap=8192, max_enum_radius=5)
-    head = cell(index, queries, scfg, n_batches, latency_runs)
-    res = head["result"]
-    log(f"bench: warm-up {head['warmup_s']:.2f} s, radii "
-        f"{torch.bincount(res.radius).tolist()}, latency "
-        f"{head['batch_latency_s']:.4f} s, pipelined "
-        f"{head['pipelined_batch_s']:.4f} s/batch")
-    if not bool((res.dists[:, 0] <= 3).all()):
-        raise RuntimeError("bench: a planted neighbour was missed")
-    extra = {"n_codes": n, "q_batch": q_batch, "k": k,
-             "batch_latency_s": head["batch_latency_s"],
-             "pipelined_batch_s": head["pipelined_batch_s"],
-             "gen_s": info["gen_s"], "build_s": info["build_s"],
-             "layout": info["layout"], "warmup_s": head["warmup_s"],
-             "mean_radius": float(res.radius.float().mean()),
-             "mean_probes": float(res.n_probes.float().mean()),
-             "mean_cands": float(res.n_cands.float().mean())}
-    if oracle_nq:
-        extra.update(oracle_check(index, queries[:oracle_nq], scfg))
-    if cells:
-        scfg100 = SearchConfig(knn=100, candidate_cap=8192, max_enum_radius=5)
-        side = min(8, n_batches)
-        c100 = cell(index, queries, scfg100, side, latency_runs=1)
-        extra["k100_qps"] = c100["qps"]
-        extra["k100_batch_latency_s"] = c100["batch_latency_s"]
-        uq = bits_lib.as_codes(codes.random_codes(99, q_batch, CFG.bits),
-                               device)
-        cu = cell(index, uq, scfg, side, latency_runs=1)
-        extra["uniform_q_qps"] = cu["qps"]
-        extra["uniform_batch_latency_s"] = cu["batch_latency_s"]
-        extra["uniform_mean_radius"] = float(
-            cu["result"].radius.float().mean())
-    qps = head["qps"]
-    return {"metric": "mih_exact_qps_per_chip", "value": qps,
-            "unit": "queries/s", "vs_baseline": qps / 1e6, "extra": extra}
-
-
 def card() -> dict:
     """The card's name and power limit (``nvidia-smi``)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -253,31 +188,3 @@ def card() -> dict:
                          text=True, check=True, timeout=60).stdout
     return {"device": torch.cuda.get_device_name(0),
             "nvidia_smi": smi.strip().splitlines()[0]}
-
-
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not torch.cuda.is_available():
-        log("bench: torch.cuda.is_available() is False; the benchmark "
-            "measures a CUDA card")
-        return 2
-    env = os.environ
-    rec = run(n=int(argv[0] if argv else env.get("VERTICUT_BENCH_N",
-                                                 1_000_000)),
-              q_batch=int(env.get("VERTICUT_BENCH_Q", 8192)),
-              k=int(env.get("VERTICUT_BENCH_K", 10)),
-              device=torch.device("cuda", 0),
-              oracle_nq=int(env.get("VERTICUT_BENCH_ORACLE", 64)),
-              cells=env.get("VERTICUT_BENCH_CELLS", "1") != "0",
-              device_build_min=int(env.get("VERTICUT_DEVICE_BUILD_MIN",
-                                           DEVICE_BUILD_MIN)))
-    rec["extra"].update(card())
-    print(json.dumps(rec), flush=True)
-    if "oracle_queries" in rec["extra"] and not oracle_ok(rec["extra"]):
-        log("bench: the oracle cell found a wrong answer")
-        return 1
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

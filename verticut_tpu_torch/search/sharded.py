@@ -82,14 +82,13 @@ from verticut_tpu_torch.index import directory as dir_lib
 from verticut_tpu_torch.index.mih import (entry_block_size, entry_row_align,
                                           make_entry_rows, sort_table)
 from verticut_tpu_torch.ops import chunks as chunks_lib
-from verticut_tpu_torch.ops import enumeration, topk
+from verticut_tpu_torch.ops import topk
 from verticut_tpu_torch.parallel import collectives
 from verticut_tpu_torch.parallel.mesh import Mesh
 from verticut_tpu_torch.search.linear import linear_search
 from verticut_tpu_torch.search.single import (
-    OVERFLOW_SCAN_MAX_N, SCAN_DOMINANCE_MIN_NQ, SearchResult, SearchState,
-    _cap_for_radius, _flip_masks, _radius_schedule, _stage_shift,
-    effective_scfg, init_state, run_pipeline)
+    SearchResult, SearchState, apply_fallbacks, check_query_shape,
+    effective_scfg, init_state, range_stages, run_pipeline, tier_plan)
 from verticut_tpu_torch.utils.timer import count, span
 
 
@@ -371,51 +370,18 @@ def lookup_codes(index, ids) -> torch.Tensor:
 # Drivers
 # --------------------------------------------------------------------------
 
-def _fused_budgets(scfg: SearchConfig, n: int, nq_loc: int, n_stages: int):
-    """The fused driver's stage batch caps, scan budget, retry budget, scan
-    dominance and overflow-to-scan switch: the single-device driver's rules
-    at the rank's query count."""
-    batch_caps = tuple(
-        nq_loc if i == 0 else max(64, nq_loc >> (_stage_shift(scfg.knn, n)
-                                                 + 2 * (i - 1)))
-        for i in range(n_stages))
-    scan_budget = min(nq_loc, max(64, nq_loc // 64))
-    # same exact-mode tier policy as the single-device driver: overflow
-    # rows ride the scan tier on small corpora; scan-dominated batches
-    # skip stages 2+
-    o2s = (scfg.overflow_to_scan and scan_budget > 0
-           and not scfg.approximate and n <= OVERFLOW_SCAN_MAX_N)
-    return dict(
-        batch_caps=batch_caps, scan_budget=scan_budget,
-        retry_budget=0 if o2s else min(nq_loc, max(64, nq_loc // 4)),
-        scan_dominance=(nq_loc // 2
-                        if scan_budget and not scfg.approximate
-                        and nq_loc >= SCAN_DOMINANCE_MIN_NQ else 0),
-        overflow_to_scan=o2s)
-
-
-def fused_schedule(scfg: SearchConfig, cfg: MIHConfig, n: int, pbits: int):
-    """The radius stages the fused driver runs: the range schedule cut to
-    stages of at most ``fused_max_masks`` masks."""
-    return tuple(
-        (r, g) for r, g in _radius_schedule(scfg, cfg, n, pbits, True)
-        if sum(enumeration.n_masks(pbits, x) for x in g)
-        <= scfg.fused_max_masks)
-
-
 def run_fused(step_fn, scan_fn, queries, q_subs, scfg: SearchConfig, *,
               schedule, caps, n: int) -> SearchState:
-    """:func:`run_pipeline` over this rank's query slice with the fused
-    driver's caps and budgets (shared by both sharded engines)."""
-    retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
-    b = _fused_budgets(scfg, n, queries.shape[0], len(schedule))
+    """:func:`run_pipeline` over this rank's query slice, with the scan
+    tier and the :func:`~verticut_tpu_torch.search.single.tier_plan` at
+    the slice's query count (shared by both sharded engines)."""
+    nq = queries.shape[0]
     return run_pipeline(
         step_fn, scan_fn, queries, q_subs,
-        init_state(queries.shape[0], scfg.pool_size, queries.device),
+        init_state(nq, scfg.pool_size, queries.device),
         schedule=schedule, caps=caps, knn=scfg.knn,
         pool_size=scfg.pool_size,
-        retry_caps=(None if b["overflow_to_scan"]
-                    else retry_caps if retry_caps != caps else None), **b)
+        **tier_plan(scfg, n, nq, schedule, caps, scan=True))
 
 
 def _step(index: ShardedMIHIndex, scfg: SearchConfig, q, qs, masks, state,
@@ -429,21 +395,16 @@ def _step(index: ShardedMIHIndex, scfg: SearchConfig, q, qs, masks, state,
             pbits=index.pbits, n_rows=index.n_rows, n_total=index.n)
 
 
-def _stage_cap(index, scfg: SearchConfig, group, blk: int,
-               cap: Optional[int]) -> int:
-    return cap or _cap_for_radius(scfg, index.n, group, index.pbits, blk)
-
-
 def _sharded_fused(index: ShardedMIHIndex, q_loc, scfg: SearchConfig,
                    cap: Optional[int]) -> Optional[SearchState]:
     """The whole schedule, retry and scan tiers through ``run_pipeline``
     on this rank's query slice; None when no stage fits."""
-    schedule = fused_schedule(scfg, index.cfg, index.n, index.pbits)
+    schedule, masks, caps = range_stages(
+        scfg, index.cfg, index.n, index.pbits,
+        entry_block_size(index.cfg.n_words), index.device, cap=cap,
+        fused=True)
     if not schedule:
         return None
-    dev = index.device
-    blk = entry_block_size(index.cfg.n_words)
-    masks = [_flip_masks(index.pbits, g, dev) for _, g in schedule]
     n_loc = index.codes.shape[0]
 
     def step_fn(i, r, c, cq, cqs, cs):
@@ -455,9 +416,7 @@ def _sharded_fused(index: ShardedMIHIndex, q_loc, scfg: SearchConfig,
 
     return run_fused(step_fn, scan_fn, q_loc,
                      all_substrings(q_loc, index.cfg.n_tables), scfg,
-                     schedule=schedule,
-                     caps=tuple(_stage_cap(index, scfg, g, blk, cap)
-                                for _, g in schedule), n=index.n)
+                     schedule=schedule, caps=caps, n=index.n)
 
 
 def _sharded_loop(index: ShardedMIHIndex, q_loc, scfg: SearchConfig,
@@ -470,13 +429,13 @@ def _sharded_loop(index: ShardedMIHIndex, q_loc, scfg: SearchConfig,
     answers are the same."""
     cfg = index.cfg
     dev = index.device
-    blk = entry_block_size(cfg.n_words)
+    schedule, stage_masks, caps = range_stages(
+        scfg, cfg, index.n, index.pbits, entry_block_size(cfg.n_words), dev,
+        cap=cap)
     q_subs = all_substrings(q_loc, cfg.n_tables)
     state = init_state(q_loc.shape[0], scfg.pool_size, dev)
-    for r, group in _radius_schedule(scfg, cfg, index.n, index.pbits, True):
-        state = _step(index, scfg, q_loc, q_subs,
-                      _flip_masks(index.pbits, group, dev), state, r,
-                      _stage_cap(index, scfg, group, blk, cap))
+    for (r, _group), masks, c in zip(schedule, stage_masks, caps):
+        state = _step(index, scfg, q_loc, q_subs, masks, state, r, c)
         if bool(state.done.all()):
             break
     return state
@@ -485,7 +444,7 @@ def _sharded_loop(index: ShardedMIHIndex, q_loc, scfg: SearchConfig,
 def gather_result(mesh: Mesh, state: SearchState, k: int) -> dict:
     """Every query slice's final state, all-gathered over the query axis
     into one host row per query of the batch: the per-query fields of
-    :func:`search.single._apply_fallbacks`."""
+    :func:`search.single.apply_fallbacks`."""
     with span("mih.sharded.gather_result"):
         cols = torch.stack([state.radius, state.overflow.to(torch.int32),
                             (~state.done).to(torch.int32), state.n_probes,
@@ -500,46 +459,32 @@ def gather_result(mesh: Mesh, state: SearchState, k: int) -> dict:
                 n_nonempty=c[:, 4].clone(), n_cands=c[:, 5].clone())
 
 
-def finish(index, queries, scfg: SearchConfig, cap: Optional[int], search,
-           row: dict) -> SearchResult:
-    """The host retry and the linear fallback, the same on every rank:
-    overflowed rows re-run at 4x caps (the subset padded to the query
-    axis), unfinished rows take the exact sharded scan."""
-    mesh = index.mesh
-    k = scfg.knn
-    dists, ids, radius = row["dists"], row["ids"], row["radius"]
-    not_done = row["not_done"]
-    redo = row["overflow"] & ~not_done
-    base_cap = cap or scfg.candidate_cap
-    nq_ax = mesh.shape["query"]
+def _fallbacks(index, queries, scfg: SearchConfig, cap: Optional[int],
+               search, row: dict) -> SearchResult:
+    """:func:`~verticut_tpu_torch.search.single.apply_fallbacks`, the same
+    on every rank: a re-run subset padded to the query axis through
+    ``search`` (the engine's own entry point), the scan the exact sharded
+    one (:func:`sharded_linear_search`)."""
+    nq_ax = index.mesh.shape["query"]
 
     def padded(idxs):
         n_pad = (-idxs.shape[0]) % nq_ax
-        return torch.cat([idxs, idxs[:1].repeat(n_pad)]).to(queries.device)
+        return queries[torch.cat([idxs, idxs[:1].repeat(n_pad)])
+                       .to(queries.device)]
 
-    if bool(redo.any()):
-        if base_cap < index.n:
-            idxs = torch.nonzero(redo).flatten()
-            sub = search(index, queries[padded(idxs)], scfg,
-                         _cap=min(base_cap * 4, max(index.n, 8)))
-            dists[idxs] = sub.dists[:idxs.shape[0]]
-            ids[idxs] = sub.ids[:idxs.shape[0]]
-            radius[idxs] = sub.radius[:idxs.shape[0]]
-        else:
-            # terminal cap still clipped (block-granular budgets): never
-            # drop an overflow flag — take the exact linear fallback
-            not_done = not_done | redo
-    if bool(not_done.any()):
-        idxs = torch.nonzero(not_done).flatten()
-        ld, li = sharded_linear_search(mesh, index.codes,
-                                       queries[padded(idxs)], k,
-                                       n_total=index.n)
-        dists[idxs] = ld[:idxs.shape[0]].cpu()
-        ids[idxs] = li[:idxs.shape[0]].cpu()
-    return SearchResult(dists=dists, ids=ids, radius=radius,
-                        n_probes=row["n_probes"],
-                        n_nonempty=row["n_nonempty"],
-                        n_cands=row["n_cands"])
+    def rerun(idxs, c):
+        m = idxs.shape[0]
+        sub = search(index, padded(idxs), scfg, _cap=c)
+        return sub.dists[:m], sub.ids[:m], sub.radius[:m]
+
+    def scan(idxs):
+        m = idxs.shape[0]
+        ld, li = sharded_linear_search(index.mesh, index.codes, padded(idxs),
+                                       scfg.knn, n_total=index.n)
+        return ld[:m].cpu(), li[:m].cpu()
+
+    return apply_fallbacks(rerun, scan, n=index.n,
+                           base_cap=cap or scfg.candidate_cap, **row)
 
 
 def count_batch(queries, cap: Optional[int]) -> None:
@@ -556,10 +501,7 @@ def prepare_queries(index, queries) -> torch.Tensor:
     the code width and the query axis."""
     _check_member(index.mesh)
     queries = as_codes(queries, index.mesh.device).contiguous()
-    if queries.ndim != 2 or queries.shape[-1] != index.cfg.n_words:
-        raise ValueError(
-            f"queries shape {tuple(queries.shape)} does not match index "
-            f"code width; expected [Q, {index.cfg.n_words}]")
+    check_query_shape(index, queries)
     _local_rows(index.mesh, queries)
     return queries
 
@@ -578,5 +520,5 @@ def sharded_mih_search(index: ShardedMIHIndex, queries,
     state = _sharded_fused(index, q_loc, scfg, _cap) if scfg.fused else None
     if state is None:
         state = _sharded_loop(index, q_loc, scfg, _cap)
-    return finish(index, queries, scfg, _cap, sharded_mih_search,
-                  gather_result(index.mesh, state, scfg.knn))
+    return _fallbacks(index, queries, scfg, _cap, sharded_mih_search,
+                      gather_result(index.mesh, state, scfg.knn))

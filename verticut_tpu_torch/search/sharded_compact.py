@@ -59,13 +59,11 @@ from verticut_tpu_torch.ops import topk
 from verticut_tpu_torch.parallel import collectives
 from verticut_tpu_torch.parallel.mesh import Mesh
 from verticut_tpu_torch.search.sharded import (
-    _check_member, _device_linear, _local_rows, _my_tables,
-    _reduce_stats, _stop, count_batch, finish, fused_schedule,
-    gather_result, mesh_tables, prepare_queries, run_fused,
-    sharded_linear_search)
+    _check_member, _device_linear, _fallbacks, _local_rows, _my_tables,
+    _reduce_stats, _stop, count_batch, gather_result, mesh_tables,
+    prepare_queries, run_fused, sharded_linear_search)
 from verticut_tpu_torch.search.single import (SearchResult, SearchState,
-                                              _cap_for_radius, _flip_masks,
-                                              effective_scfg)
+                                              effective_scfg, range_stages)
 from verticut_tpu_torch.utils.timer import span
 
 #: rows of a rank's code slice streamed per all_gather of the build
@@ -469,15 +467,15 @@ def sharded_compact_search(index: ShardedCompactIndex, queries,
     count_batch(queries, _cap)
     cfg, mesh = index.cfg, index.mesh
     k = scfg.knn
-    schedule = fused_schedule(scfg, cfg, index.n, index.pbits)
+    schedule, masks, caps = range_stages(
+        scfg, cfg, index.n, index.pbits, ID_ROW_BLOCK, index.device,
+        cap=_cap, fused=True)
     if not schedule:
         ld, li = sharded_linear_search(mesh, index.codes, queries, k,
                                        n_total=index.n)
         z = torch.zeros(queries.shape[0], dtype=torch.int32)
         return SearchResult(dists=ld.cpu(), ids=li.cpu(), radius=z,
                             n_probes=z, n_nonempty=z, n_cands=z)
-    dev = index.device
-    masks = [_flip_masks(index.pbits, g, dev) for _, g in schedule]
     n_loc = index.codes.shape[0]
 
     def step_fn(i, r, cap, cq, cqs, cs):
@@ -494,9 +492,6 @@ def sharded_compact_search(index: ShardedCompactIndex, queries,
     q_loc = _local_rows(mesh, queries)
     state = run_fused(
         step_fn, scan_fn, q_loc, all_substrings(q_loc, cfg.n_tables), scfg,
-        schedule=schedule,
-        caps=tuple(_cap or _cap_for_radius(scfg, index.n, g, index.pbits,
-                                           ID_ROW_BLOCK)
-                   for _, g in schedule), n=index.n)
-    return finish(index, queries, scfg, _cap, sharded_compact_search,
-                  gather_result(mesh, state, k))
+        schedule=schedule, caps=caps, n=index.n)
+    return _fallbacks(index, queries, scfg, _cap, sharded_compact_search,
+                      gather_result(mesh, state, k))

@@ -14,8 +14,14 @@ budgets, an overflow retry ladder and a brute-force scan tier (the
 fused driver, the default); :func:`_mih_search_loop` runs one stage at a
 time and compacts between them (the loop driver, ``fused=False``, and the
 fall-through when no radius stage fits ``fused_max_masks``).
-:func:`_apply_fallbacks` then re-runs still-overflowed queries at larger
-caps and scans what remains.
+:func:`apply_fallbacks`, the host finish of every engine, then re-runs
+still-overflowed queries at larger caps and scans what remains.
+
+The tier policy around :func:`run_pipeline` lives here for all three
+engines (this one and :mod:`.sharded` / :mod:`.sharded_compact`): the
+stages a driver runs (:func:`fused_stages`), each stage's flip masks and
+candidate cap (:func:`stage_inputs`, :func:`range_stages`), and the sizes
+of the compaction, retry and scan tiers (:func:`tier_plan`).
 
 The fused driver is split as the reference splits it:
 :func:`mih_search_dispatch` hands the pipeline up to the packed result row
@@ -295,7 +301,9 @@ def effective_scfg(scfg: SearchConfig) -> SearchConfig:
     return scfg
 
 
-def _check_query_shape(index: MIHIndex, queries: torch.Tensor) -> None:
+def check_query_shape(index, queries: torch.Tensor) -> None:
+    """Raise unless ``queries`` is ``[Q, W]`` at the index's code width
+    (``index.cfg``, of any engine's index)."""
     if queries.ndim != 2 or queries.shape[-1] != index.cfg.n_words:
         raise ValueError(
             f"queries shape {tuple(queries.shape)} does not match index "
@@ -353,6 +361,72 @@ def _stage_shift(knn: int, n: int = 0) -> int:
     return 5 if 0 < n <= 4_000_000 else 4
 
 
+def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
+    m = np.concatenate([enumeration.flip_masks(mask_bits, g) for g in group])
+    return torch.from_numpy(m.view(np.int32)).to(device)
+
+
+def fused_stages(scfg: SearchConfig, schedule, mask_bits: int):
+    """The stages of ``schedule`` that the fused driver runs: those of at
+    most ``scfg.fused_max_masks`` flip masks over ``mask_bits`` bits."""
+    return tuple((r, g) for r, g in schedule
+                 if sum(enumeration.n_masks(mask_bits, x) for x in g)
+                 <= scfg.fused_max_masks)
+
+
+def stage_inputs(scfg: SearchConfig, n: int, schedule, mask_bits: int,
+                 blk: int, device, *, is_range: bool = True,
+                 cap: Optional[int] = None):
+    """Each stage's flip masks (on ``device``) and candidate cap: ``cap``
+    where given (a host re-run's raised cap), else
+    :func:`_cap_for_radius`. Returns ``(masks, caps)``."""
+    return ([_flip_masks(mask_bits, g, device) for _, g in schedule],
+            tuple(cap or _cap_for_radius(scfg, n, g, mask_bits, blk,
+                                         is_range) for _, g in schedule))
+
+
+def range_stages(scfg: SearchConfig, cfg: MIHConfig, n: int, pbits: int,
+                 blk: int, device, *, cap: Optional[int] = None,
+                 fused: bool = False):
+    """The radius stages of a range engine over ``pbits``-bit prefixes
+    (the sharded engines'), cut to :func:`fused_stages` with ``fused``:
+    ``(schedule, masks, caps)``, as :func:`stage_inputs` gives them."""
+    schedule = _radius_schedule(scfg, cfg, n, pbits, True)
+    if fused:
+        schedule = fused_stages(scfg, schedule, pbits)
+    return (schedule, *stage_inputs(scfg, n, schedule, pbits, blk, device,
+                                    cap=cap))
+
+
+def tier_plan(scfg: SearchConfig, n: int, nq: int, schedule, caps,
+              scan: bool) -> dict:
+    """The fused driver's tier sizes for ``nq`` queries over ``n`` codes,
+    as :func:`run_pipeline`'s keywords; ``scan`` says whether the scan
+    tier runs. Stage ``i > 0`` compacts to ``nq >> (shift + 2 (i - 1))``
+    rows (at least 64; the shift is :func:`_stage_shift`); the retry
+    ladder re-runs up to ``nq // 4`` rows (at least 64) at twice the caps,
+    held to ``candidate_cap`` where the caps are below it, and is dropped
+    where that leaves the caps as they are. Exact mode with the scan tier
+    adds the dominance gate at ``nq // 2`` from
+    :data:`SCAN_DOMINANCE_MIN_NQ` queries, and sends overflowed rows to the
+    scan tier in place of the retry ladder (``overflow_to_scan``) up to
+    :data:`OVERFLOW_SCAN_MAX_N` codes; the exact scan would upgrade
+    approximate answers."""
+    shift = _stage_shift(scfg.knn, n)
+    exact_scan = scan and not scfg.approximate
+    o2s = scfg.overflow_to_scan and exact_scan and n <= OVERFLOW_SCAN_MAX_N
+    retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
+    return dict(
+        batch_caps=tuple(nq if i == 0
+                         else max(64, nq >> (shift + 2 * (i - 1)))
+                         for i in range(len(schedule))),
+        retry_caps=None if o2s or retry_caps == tuple(caps) else retry_caps,
+        retry_budget=0 if o2s else min(nq, max(64, nq // 4)),
+        scan_dominance=(nq // 2 if exact_scan and nq >= SCAN_DOMINANCE_MIN_NQ
+                        else 0),
+        overflow_to_scan=o2s)
+
+
 # --------------------------------------------------------------------------
 # The staged pipeline
 # --------------------------------------------------------------------------
@@ -370,20 +444,21 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                  q_subs: torch.Tensor, state0: SearchState, *, schedule,
                  caps, batch_caps, knn: int, pool_size: int,
                  retry_caps=None, retry_budget: int = 0,
-                 scan_budget: int = 0, scan_dominance: int = 0,
+                 scan_dominance: int = 0,
                  overflow_to_scan: bool = False) -> SearchState:
     """Stages with compaction, then the overflow retry ladder, then the
     scan tier. ``step_fn(i, radius, cap, queries, q_subs, state)`` is one
     radius step; ``scan_fn(queries) -> (dists [B, knn], ids [B, knn])`` the
-    exact scan. ``scan_budget`` > 0 turns the scan tier on: one call of
+    exact scan, or None for no scan tier. The scan tier is one call of
     ``scan_fn`` on the unfinished rows, their count rounded up to
     blockmin's query tile (:data:`kernels.blockmin.QUERY_TILE`) and cut to
     the batch, the rounding's rows taken from the finished ones; only the
     unfinished rows take its answers. The reference runs a static ladder
-    of ``scan_budget * 8^i`` rows there, as XLA needs fixed shapes; the
-    scan is exact per row, so the answers are the same.
+    of ``max(64, nq // 64) * 8^i`` rows there, as XLA needs fixed shapes;
+    the scan is exact per row, so the answers are the same.
     ``scan_dominance`` > 0 skips every stage after the first when at
-    least that many queries are still active after it.
+    least that many queries are still active after it (with a scan tier
+    only). :func:`tier_plan` sizes the tiers.
     ``overflow_to_scan`` sends overflowed-but-finished rows to the scan
     tier with the stragglers (one tier, not two ladders); the caller then
     passes no retry caps.
@@ -441,7 +516,7 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
         return full
 
     full = staged(queries, q_subs, state0, caps, batch_caps,
-                  dominance=scan_dominance if scan_budget else 0)
+                  dominance=scan_dominance if scan_fn is not None else 0)
 
     if retry_caps:
         with span("mih.retry"):
@@ -483,7 +558,7 @@ def run_pipeline(step_fn, scan_fn, queries: torch.Tensor,
                     for f in ("pool_dist", "pool_id", "done", "radius",
                               "overflow")})
 
-    if scan_budget and scan_fn is not None:
+    if scan_fn is not None:
         with span("mih.scan"):
             # one scan of the unfinished rows, rounded up to blockmin's
             # query tile: the kernel runs the rounding's rows for free
@@ -541,11 +616,6 @@ def _index_mask_bits(index: MIHIndex) -> int:
     return d.pbits if isinstance(d, RangeDirectory) else index.cfg.s_bits
 
 
-def _flip_masks(mask_bits: int, group, device) -> torch.Tensor:
-    m = np.concatenate([enumeration.flip_masks(mask_bits, g) for g in group])
-    return torch.from_numpy(m.view(np.int32)).to(device)
-
-
 def _prepare(index: MIHIndex, queries, scfg: SearchConfig):
     """The request as every driver takes it: the effective config, the
     queries as a contiguous int32 tensor on the index's device, and the
@@ -553,7 +623,7 @@ def _prepare(index: MIHIndex, queries, scfg: SearchConfig):
     scfg = effective_scfg(scfg)
     _check_bitmap_engine(index, scfg)
     queries = as_codes(queries, index.device).contiguous()
-    _check_query_shape(index, queries)
+    check_query_shape(index, queries)
     return scfg, queries, _radius_schedule(scfg, index.cfg, index.n,
                                            _index_mask_bits(index),
                                            index.is_range)
@@ -737,15 +807,6 @@ def _unpack_row(row: torch.Tensor, k: int, id_bits: int) -> dict:
                 n_cands=stats[:, 2].to(torch.int32))
 
 
-def fused_stages(index: MIHIndex, scfg: SearchConfig, schedule):
-    """The stages of ``schedule`` that the fused driver runs: those of at
-    most ``scfg.fused_max_masks`` flip masks."""
-    mask_bits = _index_mask_bits(index)
-    return tuple((r, g) for r, g in schedule
-                 if sum(enumeration.n_masks(mask_bits, x) for x in g)
-                 <= scfg.fused_max_masks)
-
-
 def mih_search_dispatch(index: MIHIndex, queries,
                         scfg: SearchConfig = SearchConfig(),
                         _cap: Optional[int] = None
@@ -763,7 +824,7 @@ def mih_search_dispatch(index: MIHIndex, queries,
         return None
     with span("mih.dispatch"):
         scfg, queries, schedule = _prepare(index, queries, scfg)
-        schedule = fused_stages(index, scfg, schedule)
+        schedule = fused_stages(scfg, schedule, _index_mask_bits(index))
         if not schedule:
             return None
         ready = None
@@ -787,41 +848,20 @@ def mih_search_finalize(h: FusedHandle) -> SearchResult:
             event.synchronize()
         row = _unpack_row(host, h.scfg.knn,
                           _result_id_bits(h.index.tables, h.index.cfg.bits))
-        return _apply_fallbacks(h.index, h.queries, h.scfg, h.cap,
-                                h.scfg.knn, **row)
+        return _fallbacks(h.index, h.queries, h.scfg, h.cap, row)
 
 
-def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
-               _cap: Optional[int], schedule, *, scan: bool = True,
-               retry: bool = True,
-               scan_dominance: Optional[int] = None) -> torch.Tensor:
-    """The whole schedule through :func:`run_pipeline`, as the packed
-    result row. The keywords switch pieces off for the profiling tools
-    (``tools/_profile.fused_variant``): ``scan`` the scan tier, ``retry``
-    the overflow retry ladder; ``scan_dominance`` replaces the dominance
-    gate's threshold (by default ``nq // 2`` in exact mode from
-    :data:`SCAN_DOMINANCE_MIN_NQ` queries, else 0)."""
-    cfg = index.cfg
+def _fused_args(index: MIHIndex, queries: torch.Tensor,
+                scfg: SearchConfig, _cap: Optional[int], schedule) -> dict:
+    """:func:`run_pipeline`'s arguments for the fused driver: the step and
+    scan functions (no scan tier without the index's codes), the batch,
+    its substrings and first state, each stage's cap, and the
+    :func:`tier_plan`."""
     dev = index.device
-    nq = queries.shape[0]
-    k, pool_size = scfg.knn, scfg.pool_size
-    mask_bits = _index_mask_bits(index)
-    scan_budget = (min(nq, max(64, nq // 64))
-                   if index.codes is not None and scan else 0)
-    caps = tuple(_cap or _cap_for_radius(scfg, index.n, g, mask_bits,
-                                         index.fetch_block(), index.is_range)
-                 for _, g in schedule)
-    batch_caps = tuple(
-        nq if i == 0 else max(64, nq >> (_stage_shift(k, index.n)
-                                         + 2 * (i - 1)))
-        for i in range(len(schedule)))
-    masks = [_flip_masks(mask_bits, g, dev) for _, g in schedule]
-    retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
-    # exact mode only, as the dominance gate: the exact scan would upgrade
-    # approximate answers
-    overflow_to_scan = (scfg.overflow_to_scan and scan_budget > 0
-                        and not scfg.approximate
-                        and index.n <= OVERFLOW_SCAN_MAX_N)
+    nq, k = queries.shape[0], scfg.knn
+    masks, caps = stage_inputs(scfg, index.n, schedule,
+                               _index_mask_bits(index), index.fetch_block(),
+                               dev, is_range=index.is_range, cap=_cap)
 
     def step_fn(i, r, cap, cq, cqs, cs):
         return _step_fn(index, scfg, r, cap)(cq, cqs, masks[i], cs)
@@ -831,22 +871,23 @@ def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
         return scan_blockmin(sq, index.codes, k,
                              block=512 if k <= 32 else 128)
 
-    if scan_dominance is None:
-        scan_dominance = (nq // 2 if scan_budget and not scfg.approximate
-                          and nq >= SCAN_DOMINANCE_MIN_NQ else 0)
-    full = run_pipeline(
-        step_fn, scan_fn if index.codes is not None else None, queries,
-        index.table_subs(queries), init_state(nq, pool_size, dev),
-        schedule=schedule, caps=caps, batch_caps=batch_caps, knn=k,
-        pool_size=pool_size,
-        retry_caps=(None if overflow_to_scan or retry_caps == caps
-                    or not retry else retry_caps),
-        retry_budget=(0 if overflow_to_scan or not retry
-                      else min(nq, max(64, nq // 4))),
-        scan_budget=scan_budget, scan_dominance=scan_dominance,
-        overflow_to_scan=overflow_to_scan)
+    scan = index.codes is not None
+    return dict(step_fn=step_fn, scan_fn=scan_fn if scan else None,
+                queries=queries, q_subs=index.table_subs(queries),
+                state0=init_state(nq, scfg.pool_size, dev),
+                schedule=schedule, caps=caps, knn=k,
+                pool_size=scfg.pool_size,
+                **tier_plan(scfg, index.n, nq, schedule, caps, scan))
+
+
+def _fused_row(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
+               _cap: Optional[int], schedule) -> torch.Tensor:
+    """The whole schedule through :func:`run_pipeline`, as the packed
+    result row."""
+    full = run_pipeline(**_fused_args(index, queries, scfg, _cap, schedule))
     with span("mih.pack"):
-        return _pack_row(full, k, _result_id_bits(index.tables, cfg.bits))
+        return _pack_row(full, scfg.knn,
+                         _result_id_bits(index.tables, index.cfg.bits))
 
 
 # --------------------------------------------------------------------------
@@ -887,7 +928,6 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
     batch, finished rows retire and the rest compact into a power-of-two
     batch of at least 64 rows. A stage whose probe tensor would pass
     2^26 elements runs in query slices."""
-    cfg = index.cfg
     dev = index.device
     nq = queries.shape[0]
     k, pool_size = scfg.knn, scfg.pool_size
@@ -896,10 +936,10 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
     state = init_state(nq, pool_size, dev)
     final = init_state(nq, pool_size, dev)   # retired rows, original order
     orig = torch.arange(nq, device=dev)      # batch row -> original row
-    for r, group in schedule:
-        cap = _cap or _cap_for_radius(scfg, index.n, group, mask_bits,
-                                      index.fetch_block(), index.is_range)
-        masks = _flip_masks(mask_bits, group, dev)
+    stage_masks, caps = stage_inputs(scfg, index.n, schedule, mask_bits,
+                                     index.fetch_block(), dev,
+                                     is_range=index.is_range, cap=_cap)
+    for (r, _group), masks, cap in zip(schedule, stage_masks, caps):
         step = _step_fn(index, scfg, r, cap)
         b = cur_q.shape[0]
         if b * masks.shape[0] > (1 << 26) and b > 64:
@@ -925,56 +965,72 @@ def _mih_search_loop(index: MIHIndex, queries: torch.Tensor,
                               orig.new_full((new_batch - n_active,), -1)])
     final = SearchState(*(f.cpu() for f in _retire(
         final, orig, state, torch.ones_like(state.done))))
-    return _apply_fallbacks(
-        index, queries, scfg, _cap, k,
+    return _fallbacks(index, queries, scfg, _cap, dict(
         dists=final.pool_dist[:, :k].clone(),
         ids=final.pool_id[:, :k].clone(), radius=final.radius,
         overflow=final.overflow, not_done=~final.done,
         n_probes=final.n_probes, n_nonempty=final.n_nonempty,
-        n_cands=final.n_cands)
+        n_cands=final.n_cands))
 
 
-def _apply_fallbacks(index: MIHIndex, queries: torch.Tensor,
-                     scfg: SearchConfig, _cap: Optional[int], k: int, *,
-                     dists, ids, radius, overflow, not_done, n_probes,
-                     n_nonempty, n_cands) -> SearchResult:
-    """Overflow retry at 4x caps, then the exact linear scan for queries
-    still unfinished (or overflowed at a cap that already covers n). The
-    per-query fields are host tensors, and the result stays on the host;
-    ``queries`` lies on the index's device. The rows re-run or scanned
-    add to ``mih.fallback_rows``."""
-    dev = queries.device
+# --------------------------------------------------------------------------
+# The host finish
+# --------------------------------------------------------------------------
+
+def apply_fallbacks(rerun, scan, *, n: int, base_cap: int, dists, ids,
+                    radius, overflow, not_done, n_probes, n_nonempty,
+                    n_cands) -> SearchResult:
+    """The host finish of every engine, on the per-query host fields of a
+    batch. Rows that finished overflowed re-run at 4x ``base_cap``
+    (``rerun(idxs, cap) -> (dists, ids, radius)`` of the rows ``idxs``)
+    while it is below ``n``; from there the cap covers the corpus, but
+    range budgets are consumed in whole blocks, so a set overflow flag is
+    never dropped: the row counts as unfinished. Unfinished rows take the
+    exact scan (``scan(idxs) -> (dists, ids)``). The read-amplification
+    stats stay the first run's. The rows re-run or scanned add to
+    ``mih.fallback_rows``."""
     redo = overflow & ~not_done
-    base_cap = _cap or scfg.candidate_cap
     if bool(redo.any()):
-        if base_cap < index.n:
+        if base_cap < n:
             idxs = torch.nonzero(redo).flatten()
             count("mih.fallback_rows", idxs.shape[0])
-            new_cap = min(base_cap * 4, max(index.n, 8))
-            # bound the retry's candidate slots (~0.5 GB of int32 pairs)
-            max_rows = max(64, (1 << 25) // max(new_cap, 1))
-            for lo in range(0, idxs.shape[0], max_rows):
-                part = idxs[lo:lo + max_rows]
-                sub = mih_search(index, queries[part.to(dev)], scfg,
-                                 _cap=new_cap)
-                dists[part] = sub.dists
-                ids[part] = sub.ids
-                radius[part] = sub.radius
+            dists[idxs], ids[idxs], radius[idxs] = rerun(
+                idxs, min(base_cap * 4, max(n, 8)))
         else:
-            # range budgets are consumed in whole blocks, so cap >= n does
-            # not prove completeness: never drop a set overflow flag
             not_done = not_done | redo
     if bool(not_done.any()):
+        idxs = torch.nonzero(not_done).flatten()
+        count("mih.fallback_rows", idxs.shape[0])
+        dists[idxs], ids[idxs] = scan(idxs)
+    return SearchResult(dists=dists, ids=ids, radius=radius,
+                        n_probes=n_probes, n_nonempty=n_nonempty,
+                        n_cands=n_cands)
+
+
+def _fallbacks(index: MIHIndex, queries: torch.Tensor, scfg: SearchConfig,
+               _cap: Optional[int], row: dict) -> SearchResult:
+    """:func:`apply_fallbacks` on one device: the re-run through
+    :func:`mih_search` in slices of rows, the scan the exact linear
+    search. ``row`` holds the host fields; ``queries`` lies on the index's
+    device."""
+    dev = queries.device
+
+    def rerun(idxs, cap):
+        # bound the retry's candidate slots (~0.5 GB of int32 pairs)
+        max_rows = max(64, (1 << 25) // max(cap, 1))
+        subs = [mih_search(index, queries[part.to(dev)], scfg, _cap=cap)
+                for part in idxs.split(max_rows)]
+        return tuple(torch.cat([getattr(sub, f) for sub in subs])
+                     for f in ("dists", "ids", "radius"))
+
+    def scan(idxs):
         if index.codes is None:
             raise ValueError(
                 "queries unfinished at max_enum_radius and index has no "
                 "code array for linear fallback; raise max_enum_radius")
-        idxs = torch.nonzero(not_done).flatten()
-        count("mih.fallback_rows", idxs.shape[0])
         ld, li = linear_lib.linear_search(queries[idxs.to(dev)], index.codes,
-                                          k)
-        dists[idxs] = ld.cpu()
-        ids[idxs] = li.cpu()
-    return SearchResult(dists=dists, ids=ids, radius=radius,
-                        n_probes=n_probes, n_nonempty=n_nonempty,
-                        n_cands=n_cands)
+                                          scfg.knn)
+        return ld.cpu(), li.cpu()
+
+    return apply_fallbacks(rerun, scan, n=index.n,
+                           base_cap=_cap or scfg.candidate_cap, **row)

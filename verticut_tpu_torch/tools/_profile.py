@@ -174,18 +174,28 @@ def fused_variant(index, queries, scfg: SearchConfig, *, scan: bool = True,
     stages of the fused schedule, ``dominance`` the dominance gate (its
     threshold ``nq // 2`` whenever the scan ladder runs, at any batch
     size), ``overflow_to_scan`` the merged ladder (``SearchConfig.
-    overflow_to_scan``). The caps, budgets and schedule are the fused
-    driver's own."""
+    overflow_to_scan``). The caps, the schedule and the
+    :func:`~verticut_tpu_torch.search.single.tier_plan` are the fused
+    driver's own; the variant edits the plan, then runs the pipeline."""
     scfg = dataclasses.replace(scfg, overflow_to_scan=overflow_to_scan)
     scfg, queries, schedule = single._prepare(index, queries, scfg)
-    schedule = single.fused_stages(index, scfg, schedule)
+    schedule = single.fused_stages(scfg, schedule,
+                                   single._index_mask_bits(index))
     if n_stages is not None:
         schedule = schedule[:n_stages]
     if not schedule:
         raise ValueError("no radius stage fits fused_max_masks")
-    return single._fused_row(
-        index, queries, scfg, None, schedule, scan=scan, retry=retry,
-        scan_dominance=queries.shape[0] // 2 if dominance else 0)
+    nq = queries.shape[0]
+    args = single._fused_args(index, queries, scfg, None, schedule)
+    if not scan:
+        args.update(single.tier_plan(scfg, index.n, nq, schedule,
+                                     args["caps"], scan=False), scan_fn=None)
+    if not retry:
+        args.update(retry_caps=None, retry_budget=0)
+    args["scan_dominance"] = nq // 2 if dominance else 0
+    full = single.run_pipeline(**args)
+    return single._pack_row(full, scfg.knn, single._result_id_bits(
+        index.tables, index.cfg.bits))
 
 
 def row_fields(index, row: torch.Tensor, k: int) -> dict:
@@ -208,8 +218,8 @@ def finalized_equal(index, queries, scfg: SearchConfig, row: torch.Tensor,
     the exact scan of unfinished rows), equals ``want`` (``mih_search``'s
     result) in dists and ids: the variant kept the answer exact."""
     scfg, queries, _ = single._prepare(index, queries, scfg)
-    got = single._apply_fallbacks(index, queries, scfg, None, scfg.knn,
-                                  **row_fields(index, row, scfg.knn))
+    got = single._fallbacks(index, queries, scfg, None,
+                            row_fields(index, row, scfg.knn))
     return bool(torch.equal(got.dists, want.dists)
                 and torch.equal(got.ids, want.ids))
 
